@@ -1,0 +1,299 @@
+"""DICOM -> masks -> dense flow -> HDF5: the production main path of the
+PyTorch port (the JAX package's flow/pipeline.py, otsu + TV-L1 path).
+
+Parity with reference process_video (calculate_optical_flow.py:478-625):
+
+  * one device copy of the clip feeds the Otsu masks and the flow;
+  * TV-L1: all N-1 pairs are solved as one batch (ops/tvl1.py), with the
+    primal-dual loops as CUDA kernels on a card;
+  * schema quirks preserved: duplicate-last-flow-frame (:599), flow scaled
+    by pixel_spacing*frame_rate (:600), echo stored as rgb2gray floats.
+
+Not ported yet, and refused with NotImplementedError rather than run
+quietly: the segmentor modes (A4C, RVIO_2class, MouseRV_A4C), DeepFlow,
+WASE background compensation, saliency and companion waveforms.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import OpticalFlowCalculationConfig, default_optical_flow_config
+from ..core import (
+    as_device_tensor, bucketed_frame_count, bucketed_spatial,
+    pad_clip_frames, pad_spatial_edge, resolve_device,
+)
+from ..exceptions import ConfigurationError, OpticalFlowCalculationError
+from ..io.dicom import extract_metadata, read_dicom_clip
+from ..io.hdf5 import save_optical_flow_hdf5
+from ..ops.imaging import gray_from_clip, img2uint8
+from ..ops.tvl1 import tvl1_clip_flow
+from ..utils import safe_makedir, trace_stage
+from .segment import predict_movie_thres
+
+logger = logging.getLogger(__name__)
+
+_SEGMENTOR_MODES = ("A4C", "RVIO_2class", "MouseRV_A4C")
+
+
+def compute_clip_flow(images, of_algo: str = "TVL1",
+                      config: Optional[OpticalFlowCalculationConfig] = None,
+                      device=None) -> torch.Tensor:
+    """(N, H, W) flow-input images -> (N-1, H, W, 2) flow, on the device.
+
+    ``images`` is a tensor (its device is used unless ``device`` is
+    given) or a host array (sent to ``device``, ``cuda`` by default). With
+    ``config.bucket_shapes`` the solve runs at the spatial bucket shape
+    (edge-replicate pad, core.py policy) and the padding is sliced off the
+    returned flow."""
+    config = config or default_optical_flow_config()
+    algo = of_algo.lower()
+    if algo not in ("tvl1", "deepflow"):
+        raise OpticalFlowCalculationError(
+            "OF_algo only supports deepflow or TVL1")
+    if algo == "deepflow":
+        raise NotImplementedError(
+            "DeepFlow is not ported yet: ROADMAP.md, 'Modules to port' "
+            "item 6 (DeepFlow; config 2)")
+    images = as_device_tensor(images, device).to(torch.float32)
+    n, h, w = images.shape
+    if config.bucket_shapes and config.spatial_bucket > 1:
+        hb, wb = bucketed_spatial(h, w, config.spatial_bucket)
+        images = pad_spatial_edge(images, hb, wb)
+    flow = tvl1_clip_flow(images, config=config)
+    return flow[:, :h, :w, :]
+
+
+class AsyncHDF5Writer:
+    """One-deep write-behind for the pipeline's HDF5 stage.
+
+    The gzip-9 write runs on the host, after the device work of its clip;
+    h5py releases the GIL around HDF5 library calls, so one writer thread
+    lets clip N gzip while clip N+1's masks and flow run on the card. The
+    depth-1 queue bounds host memory to two outstanding clips. Failures
+    are kept with the originating source path so ``process_folder``'s
+    per-file error isolation survives (reference
+    calculate_optical_flow.py:276-284).
+    """
+
+    def __init__(self) -> None:
+        self._queue: "queue.Queue" = queue.Queue(maxsize=1)
+        self._errors: List[Tuple[str, Exception]] = []
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            src_path, write_fn = item
+            try:
+                write_fn()
+            except Exception as exc:  # per-file isolation
+                logger.error("Error writing output for %s: %s", src_path, exc)
+                self._errors.append((src_path, exc))
+
+    def submit(self, src_path: str, write_fn: Callable[[], None]) -> None:
+        """Enqueue (blocks while a previous write is still in flight)."""
+        self._queue.put((src_path, write_fn))
+
+    def close(self) -> List[Tuple[str, Exception]]:
+        """Drain, stop the thread, and return (src_path, error) pairs."""
+        self._queue.put(None)
+        self._thread.join()
+        return self._errors
+
+
+def process_video(dcm_path: str, save_path: str,
+                  segmentor_model: Optional[Callable] = None,
+                  verbose: bool = True, mode: str = "A4C",
+                  bkgd_comp: str = "none", flipLR: bool = False,
+                  no_saliency: bool = False, OF_algo: str = "TVL1",
+                  save_mask_subset: Optional[List[str]] = None,
+                  include_waveforms: bool = False,
+                  waveform_folder: Optional[str] = None,
+                  config: Optional[OpticalFlowCalculationConfig] = None,
+                  device=None,
+                  _writer: Optional[AsyncHDF5Writer] = None,
+                  _save_fn: Callable = save_optical_flow_hdf5) -> None:
+    """Full DICOM -> HDF5 production for one clip, on ``device`` (``cuda``
+    unless the caller passes ``"cpu"``).
+
+    The signature and validation follow the JAX package's process_video.
+    With ``_writer`` the write is handed to the write-behind thread
+    (process_folder's overlap path); write errors then surface at
+    ``_writer.close()``, keyed by ``dcm_path``. ``_save_fn`` receives the
+    arguments of ``save_optical_flow_hdf5``, which it defaults to; a check
+    can pass its own to inspect the arrays where h5py is absent.
+    """
+    if config is None:
+        config = default_optical_flow_config()
+    dev = resolve_device(device)
+
+    # reference's mode/flag validation (:509-517)
+    if mode == "otsu":
+        if bkgd_comp != "none":
+            raise ConfigurationError(
+                f"bkgd_comp {bkgd_comp} is not supported in mode=otsu, "
+                "can only support bkgd_comp=none")
+        if save_mask_subset is not None:
+            raise ConfigurationError(
+                "In mode=otsu, save_mask_subset must be None")
+    if bkgd_comp not in ("WASE", "none"):
+        raise OpticalFlowCalculationError(
+            f"bkgd_comp value must be [WASE, none], got {bkgd_comp}!")
+    if mode in _SEGMENTOR_MODES:
+        if segmentor_model is None:
+            raise ConfigurationError(
+                f"mode={mode} requires a segmentor model")
+        raise NotImplementedError(
+            f"mode={mode} needs the SAM segmentor, not ported yet: "
+            "ROADMAP.md, 'Modules to port' item 7 (SAM inference)")
+    if mode != "otsu":
+        raise ConfigurationError(
+            f"Input for mode must be [A4C, otsu, RVIO_2class, MouseRV_A4C], "
+            f"not {mode}.")
+    if bkgd_comp == "WASE" or not no_saliency:
+        raise NotImplementedError(
+            "WASE background compensation and saliency are not ported "
+            "yet: ROADMAP.md, 'Modules to port' item 5")
+    if include_waveforms:
+        raise NotImplementedError(
+            "companion waveforms are not ported yet: ROADMAP.md, "
+            "'Modules to port' item 8")
+    if OF_algo.lower() == "deepflow":
+        raise NotImplementedError(
+            "DeepFlow is not ported yet: ROADMAP.md, 'Modules to port' "
+            "item 6 (DeepFlow; config 2)")
+
+    # --- read + metadata (host) ---
+    with trace_stage("dicom_read"):
+        ds, nparr = read_dicom_clip(dcm_path)
+        metadata = extract_metadata(ds, verbose)
+
+    pixel_spacing = metadata.get("pixel_spacing")
+    frame_rate = metadata.get("frame_rate")
+    conversion_factor = (1.0 if pixel_spacing is None or frame_rate is None
+                         else pixel_spacing * frame_rate)
+    if flipLR:
+        nparr = np.flip(nparr, axis=2)
+    nframes = nparr.shape[0]
+    if verbose:
+        logger.info("Pixel data obtained, of shape: %s", nparr.shape)
+
+    # frame-axis bucketing (core.py): last-frame repeats are exact for
+    # every real frame's masks and flow; sliced off below
+    if config.bucket_shapes and config.frame_bucket > 1:
+        nparr = pad_clip_frames(
+            nparr, bucketed_frame_count(nframes, config.frame_bucket))
+
+    # --- one device copy feeds segmentation AND flow. Echo DICOMs are
+    # RGB-coded grayscale almost always: when R==G==B, send a single
+    # channel (luma of R=G=B is the channel) ---
+    is_gray = (nparr.ndim == 4 and nparr.shape[-1] == 3
+               and np.array_equal(nparr[..., 0], nparr[..., 1])
+               and np.array_equal(nparr[..., 0], nparr[..., 2]))
+    clip = np.ascontiguousarray(nparr[..., 0] if is_gray else nparr)
+    clip_dev = torch.from_numpy(clip).to(dev)
+    gray = gray_from_clip(clip_dev)  # shared by otsu masks and flow prep
+
+    # --- masks (device, batched) ---
+    with trace_stage("segmentation"):
+        mask_dict = predict_movie_thres(nparr, verbose=verbose,
+                                        config=config, _gray_dev=gray)
+        if nparr.shape[0] != nframes:  # drop frame-bucket padding
+            mask_dict = {k: v[:nframes] for k, v in mask_dict.items()}
+
+    # --- flow input prep: per-frame img2uint8 (reference :586-588) ---
+    with trace_stage("flow_input_prep"):
+        images = img2uint8(gray)
+
+    # --- flow (device, all pairs at once) ---
+    with trace_stage("optical_flow"):
+        # padded (last, last) pairs solve to zero flow; slice them off
+        flow_pairs = compute_clip_flow(images, OF_algo, config)[:nframes - 1]
+        gray = gray[:nframes]
+        # unit conversion (:600) and the schema's float16 on the device:
+        # half the bytes cross to the host
+        cf = torch.tensor(conversion_factor, dtype=torch.float32, device=dev)
+        flow_host = (flow_pairs * cf).to(torch.float16).cpu().numpy()
+        echo_gray = gray.to(torch.float16).cpu().numpy()
+
+    # --- persist (host) ---
+    patient_id = str(ds.get((0x0010, 0x0020), "") or "")
+    hr = ds.get((0x0018, 0x1088))
+    heart_rate = hr if hr is not None else 0
+
+    def _write() -> None:
+        # duplicate last flow frame to clip length (:599)
+        flow_arr = np.concatenate([flow_host, flow_host[-1:]], axis=0)
+        _save_fn(
+            save_path, flow_arr, echo_gray, mask_dict,
+            {**metadata, "nframes": nframes},
+            {}, mode=mode, no_saliency=no_saliency,
+            include_waveforms=False, patient_id=patient_id,
+            heart_rate=heart_rate,
+            sampling_rates={"ecg": config.ecg_sampling_rate,
+                            "art": config.art_sampling_rate,
+                            "cvp": config.cvp_sampling_rate,
+                            "pap": config.pap_sampling_rate},
+            save_mask_subset=save_mask_subset, verbose=verbose)
+
+    if _writer is not None:
+        _writer.submit(dcm_path, _write)
+    else:
+        with trace_stage("hdf5_write"):
+            _write()
+
+
+def process_folder(dcm_dir: str, save_dir: str,
+                   segmentor_model: Optional[Callable] = None,
+                   nchunks: int = 1, chunk_index: int = 0,
+                   recalculate: bool = False, verbose: bool = False,
+                   overlap_writes: bool = True,
+                   **process_kwargs) -> List[str]:
+    """Shard a folder of DICOMs and process one chunk, accumulating errors
+    instead of dying (reference process_folder,
+    calculate_optical_flow.py:243-290). Returns the list of failed paths.
+
+    ``overlap_writes`` (default) hands each clip's gzip-9 HDF5 write to a
+    one-deep writer thread so clip N+1's device compute overlaps clip N's
+    host write; failed writes still land in the error list under their
+    source path."""
+    if not os.path.isdir(dcm_dir):
+        raise ConfigurationError(f"dcm_folder does not exist: {dcm_dir}")
+    safe_makedir(save_dir)
+    files = sorted(f for f in os.listdir(dcm_dir)
+                   if f.lower().endswith(".dcm"))
+    chunks = np.array_split(np.asarray(files, dtype=object), nchunks)
+    my_files = list(chunks[chunk_index]) if chunk_index < len(chunks) else []
+
+    writer = AsyncHDF5Writer() if overlap_writes else None
+    errors: List[str] = []
+    try:
+        for fname in my_files:
+            dcm_path = os.path.join(dcm_dir, fname)
+            save_path = os.path.join(save_dir, fname[:-4] + ".hdf5")
+            if os.path.exists(save_path) and not recalculate:
+                if verbose:
+                    logger.info("%s exists, skipping", save_path)
+                continue
+            try:
+                process_video(dcm_path, save_path, segmentor_model,
+                              verbose=verbose, _writer=writer,
+                              **process_kwargs)
+            except Exception as exc:  # per-file isolation (reference :276-284)
+                logger.error("Error processing %s: %s", dcm_path, exc)
+                errors.append(dcm_path)
+    finally:
+        if writer is not None:
+            errors.extend(src for src, _ in writer.close())
+    return errors

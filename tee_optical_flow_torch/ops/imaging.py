@@ -1,0 +1,48 @@
+"""Luma and per-frame normalisation (the JAX package's ops/imaging.py).
+
+Replaces skimage's rgb2gray and the reference's img2uint8 on the hot path
+(reference calculate_optical_flow.py:399/586) with tensor ops batched over
+frames, on whatever device the tensor lies.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# ITU-R BT.601 luma weights, matching skimage.color.rgb2gray
+_LUMA = np.asarray([0.2125, 0.7154, 0.0721], dtype=np.float32)
+
+
+def rgb2gray(frames: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) uint8/float -> (..., H, W) float32 luma in [0, 1]."""
+    if frames.dtype == torch.uint8:
+        frames = frames.to(torch.float32) / 255.0
+    else:
+        frames = frames.to(torch.float32)
+    return frames @ torch.from_numpy(_LUMA).to(frames.device)
+
+
+def gray_from_clip(clip: torch.Tensor) -> torch.Tensor:
+    """Luma for a clip that is either (..., H, W, 3) RGB or already a
+    single (..., H, W) channel (a grayscale clip sent without its two
+    redundant RGB copies: the luma weights sum to 1, so rgb2gray of
+    R=G=B frames IS the channel)."""
+    if clip.ndim >= 3 and clip.shape[-1] == 3:
+        return rgb2gray(clip)
+    if clip.dtype == torch.uint8:
+        return clip.to(torch.float32) / 255.0
+    return clip.to(torch.float32)
+
+
+def img2uint8(img: torch.Tensor) -> torch.Tensor:
+    """Min-shift, max-scale each (H, W) frame to [0, 255] (reference
+    optical_flow_utils.py:30-31 semantics), kept float32 for the flow
+    solver. ``img`` is (H, W) or (N, H, W); the min and max are taken per
+    frame, as the JAX package's ``jax.vmap(img2uint8_jnp)`` does."""
+    img = img.to(torch.float32)
+    lo = torch.amin(img, dim=(-2, -1), keepdim=True)
+    mx = torch.amax(img, dim=(-2, -1), keepdim=True)
+    shifted = img - lo
+    scaled = torch.where(mx > 0, shifted / mx, shifted)
+    return torch.clamp(scaled, 0.0, 1.0) * 255.0

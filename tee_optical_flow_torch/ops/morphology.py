@@ -1,0 +1,169 @@
+"""Binary morphology over whole clips (the JAX package's ops/morphology.py).
+
+Every op runs batched over the frame axis, on the device the masks lie on:
+
+  * connected components by a fixed ``2*(H+W)`` rounds of neighbour-min
+    label propagation. This is the JAX labelling round for round, so the
+    labels are bit-equal to it by construction, including its limit: it
+    is exact for components whose geodesic diameter is at most 2*(H+W);
+  * component sizes by scatter-adds keyed by root label;
+  * fill-holes as border reachability on the complement;
+  * the temporal moving-average mask as a cumsum (reference :90-111).
+
+Connectivity conventions match the reference's defaults: ``label`` uses
+8-connectivity (skimage 2-D default), ``remove_small_objects`` and
+``binary_fill_holes`` use 4-connectivity.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _neighbor_min(ids: torch.Tensor, big: int, connectivity: int
+                  ) -> torch.Tensor:
+    """Min of each pixel's neighbourhood labels (cross or 3x3); ids is
+    (N, H, W)."""
+    p = F.pad(ids, (1, 1, 1, 1), value=big)
+    up = p[:, :-2, 1:-1]
+    down = p[:, 2:, 1:-1]
+    left = p[:, 1:-1, :-2]
+    right = p[:, 1:-1, 2:]
+    m = torch.minimum(torch.minimum(up, down), torch.minimum(left, right))
+    if connectivity == 2:
+        ul = p[:, :-2, :-2]
+        ur = p[:, :-2, 2:]
+        dl = p[:, 2:, :-2]
+        dr = p[:, 2:, 2:]
+        m = torch.minimum(m, torch.minimum(torch.minimum(ul, ur),
+                                           torch.minimum(dl, dr)))
+    return torch.minimum(ids, m)
+
+
+def connected_components(mask: torch.Tensor, connectivity: int = 2
+                         ) -> torch.Tensor:
+    """Label a (H, W) or (N, H, W) boolean mask, each frame on its own.
+
+    Returns int32 of the same shape: for foreground pixels, the linear
+    index (within its frame) of the component's root, its first pixel in
+    scan order; background pixels hold ``H*W``."""
+    squeeze = mask.ndim == 2
+    mask = mask.to(torch.bool)
+    if squeeze:
+        mask = mask[None]
+    _, h, w = mask.shape
+    big = h * w
+    lin = torch.arange(big, dtype=torch.int32,
+                       device=mask.device).reshape(1, h, w)
+    ids = torch.where(mask, lin, big)
+    for _ in range(2 * (h + w)):
+        ids = torch.where(mask, _neighbor_min(ids, big, connectivity), big)
+    return ids[0] if squeeze else ids
+
+
+def component_sizes(ids: torch.Tensor) -> torch.Tensor:
+    """Pixel count per root label; shape (..., H*W + 1), slot -1 =
+    background."""
+    h, w = ids.shape[-2:]
+    flat = ids.reshape(-1, h * w).to(torch.int64)
+    sizes = torch.zeros((flat.shape[0], h * w + 1), dtype=torch.int32,
+                        device=ids.device)
+    sizes.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    return sizes.reshape(ids.shape[:-2] + (h * w + 1,))
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] per frame: table (N, H*W+1), ids (N, H, W)."""
+    n, h, w = ids.shape
+    flat = ids.reshape(n, h * w).to(torch.int64)
+    return torch.gather(table, 1, flat).reshape(n, h, w)
+
+
+def remove_small_objects(mask: torch.Tensor, min_size: int = 64,
+                         connectivity: int = 1) -> torch.Tensor:
+    """Drop components smaller than ``min_size`` pixels (skimage semantics:
+    strictly-smaller components are removed). (H, W) or (N, H, W)."""
+    squeeze = mask.ndim == 2
+    mask = mask.to(torch.bool)
+    if squeeze:
+        mask = mask[None]
+    ids = connected_components(mask, connectivity=connectivity)
+    keep = mask & (_lookup(component_sizes(ids), ids) >= min_size)
+    return keep[0] if squeeze else keep
+
+
+def binary_fill_holes(mask: torch.Tensor) -> torch.Tensor:
+    """Fill background regions not reachable from the border (scipy
+    default cross structuring element = 4-connectivity). (H, W) or
+    (N, H, W)."""
+    squeeze = mask.ndim == 2
+    mask = mask.to(torch.bool)
+    if squeeze:
+        mask = mask[None]
+    n, h, w = mask.shape
+    big = h * w
+    comp = connected_components(~mask, connectivity=1)
+    border = torch.zeros((h, w), dtype=torch.bool, device=mask.device)
+    border[0, :] = True
+    border[-1, :] = True
+    border[:, 0] = True
+    border[:, -1] = True
+    outside_roots = torch.where(border & ~mask, comp, big).reshape(n, big)
+    outside = torch.zeros((n, big + 1), dtype=torch.bool, device=mask.device)
+    outside.scatter_(1, outside_roots.to(torch.int64), True)
+    # background slot must not leak "outside" onto foreground lookups
+    outside[:, big] = False
+    reachable = _lookup(outside, comp)
+    filled = mask | (~mask & ~reachable)
+    return filled[0] if squeeze else filled
+
+
+def moving_avg_mask(arr: torch.Tensor, n: int = 4, threshold: float = 0.49
+                    ) -> torch.Tensor:
+    """Temporal moving-average binarisation over the frame axis.
+
+    Exact translation of the reference's padding + cumsum-window trick
+    (calculate_optical_flow.py:90-111): prepend the first frame once,
+    append the last frame twice, window-``n`` mean, threshold.
+    """
+    ext = torch.cat([arr[:1], arr, arr[-1:], arr[-1:]], dim=0).to(
+        torch.float32)
+    csum = torch.cumsum(ext, dim=0)
+    windowed = csum[n - 1:] - torch.cat(
+        [torch.zeros_like(csum[:1]), csum[:-n]], dim=0)
+    return (windowed / n) > threshold
+
+
+def clean_binary_stack(mask_stack: torch.Tensor, min_size: int = 500
+                       ) -> torch.Tensor:
+    """fill_holes + remove_small_objects per frame, batched over the clip
+    (reference clean_mask inner loop, calculate_optical_flow.py:163-167)."""
+    return remove_small_objects(binary_fill_holes(mask_stack),
+                                min_size=min_size, connectivity=1)
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Flatten a boolean tensor and pack 8 pixels per byte (big-endian bit
+    order, numpy ``packbits``-compatible), on its device. Pair with
+    :func:`unpack_mask_bits`: moving packed masks to the host moves 8x
+    fewer bytes."""
+    flat = mask.to(torch.uint8).reshape(-1)
+    pad = (-flat.numel()) % 8
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8,
+                           device=flat.device)
+    return (flat.reshape(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)
+
+
+def unpack_mask_bits(packed, shape) -> np.ndarray:
+    """Host-side inverse of :func:`pack_mask_bits` -> bool ndarray."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    flat = np.unpackbits(np.asarray(packed), count=int(np.prod(shape)))
+    return flat.astype(bool).reshape(shape)

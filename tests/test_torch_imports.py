@@ -1,0 +1,56 @@
+"""The port stands alone: no module of tee_optical_flow_torch, nor
+chip_smoke.py, imports JAX or the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "tee_optical_flow_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tee_optical_flow_tpu",
+             "optical_flow")
+
+
+def _modules():
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_importing_the_port_loads_no_jax():
+    """Every module of the port, and chip_smoke (its main does not run on
+    import), in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), (path, roots)
