@@ -2,13 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from tee_optical_flow_torch/csrc/, holds
-each against its plain PyTorch version on the card at the main path's
-shapes, drives the main path (a 33-frame 480x640 synthetic echo DICOM
-through process_video(mode="otsu", OF_algo="TVL1", no_saliency=True) under
-the production config) and the path of the second kernel (a 600x800
-clip), and checks what comes out. Imports nothing of JAX. Exits non-zero,
-with no result line, when there is no CUDA device or a phase fails.
+Builds the port's CUDA kernels from tee_optical_flow_torch/csrc/ into
+one library (one nvcc compile per source, all at once, then one link),
+drives the port's paths through their entry points under the production
+config, and holds each kernel against its plain PyTorch version on the
+card at the shapes its path gives it (K3 on the very arguments the
+DeepFlow path handed it):
+
+  * TV-L1 (BASELINE config 1): a 33-frame 480x640 synthetic echo DICOM
+    through process_video(mode="otsu", OF_algo="TVL1", no_saliency=True);
+  * DeepFlow (BASELINE config 2): the same DICOM through
+    process_video(mode="otsu", OF_algo="deepflow", no_saliency=True);
+  * the fine-grained saliency map of the clip, card against CPU;
+  * K2's path: a 600x800 clip through compute_clip_flow.
+
+It checks what comes out (schema, wall end-point error against the
+analytic motion, launch counts per path). Imports nothing of JAX. Exits
+non-zero, with no result line, when there is no CUDA device or a phase
+fails.
 
 Output: progress lines; then, before the last line, the card's name and
 power limit (nvidia-smi) and one JSON line {"kernels": [...]} with each
@@ -18,6 +29,7 @@ bound; last, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -55,6 +67,26 @@ STEP_BYTES = (11 + 2 + 6 + 4) * 4
 # median of 0.013-0.033 px and a p95 of 0.065-0.078 px over three windows
 # of pairs (motion 0.4-2.2 px); the bounds leave 3x of that
 WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX = 0.1, 0.25
+# the same for DeepFlow: cpu_wall_reference() (the port on the CPU at the
+# production settings, pairs 0-1, 3-4 and 7-8, median motion 0.44-2.29
+# px) measured a median of 0.034-0.044 px and a p95 of 0.098-0.119 px
+DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX = 0.13, 0.36
+
+# the DeepFlow path: 5 levels x 3 fixed points, one K3 call each; K3 is
+# held against its plain version at the finest level and at 60x80
+DF_LEVELS, DF_FP_ITERS = 5, 3
+K3_SHAPES = ((CLIP_H, CLIP_W), (60, 80))
+# K3's float32 operations per pixel, counted from the algorithm: per psi
+# round 28 for the smoothness weight, 102 for the data term, the
+# diffusivities and the 2x2 system (+21 with the matching term), and 30
+# per SOR iteration (each pixel updated once per red-black pair)
+OPS_DF_WEIGHTS, OPS_DF_COEFS, OPS_DF_MATCH, OPS_DF_SOR = 28, 102, 21, 30
+# bytes the K3 kernels themselves move per pixel (neighbours from cache):
+# a half sweep reads 9 planes and writes 2; per psi round the weights
+# pass reads 4 and writes 1, the coefficients pass reads 13 (16 with
+# match) and writes 6
+DF_HALF_BYTES = (9 + 2) * 4
+DF_PSI_BYTES = (4 + 1 + 13 + 6) * 4
 
 
 def log(msg: str) -> None:
@@ -190,10 +222,13 @@ def phase_setup():
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     cuda_lib.load_library()
-    log(f"kernels built in {cuda_lib.build_info['seconds']:.1f} s: "
-        f"{cuda_lib.build_info['path']}")
-    for line in cuda_lib.build_info["ptxas"].splitlines():
+    info = cuda_lib.build_info
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc: "
+        f"{info['seconds']:.1f} s, one compile per source in parallel, one "
+        f"link), {info['path']}")
+    for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     try:
@@ -304,27 +339,108 @@ def phase_kernels(clip, truth):
     return records
 
 
+@contextlib.contextmanager
+def record_k3(captured, calls):
+    """Wrap the K3 wrapper that deepflow_pairs calls: count its calls per
+    level shape in ``calls`` and keep, in ``captured``, a copy of the
+    arguments and keywords of the first call at each shape of K3_SHAPES;
+    restore it on exit. The wrapper counts its launches on its own module
+    attribute, so the recorder shares the wrapper's attributes."""
+    from tee_optical_flow_torch.ops import deepflow_kernels as dk
+
+    inner = dk.sor_sweeps
+
+    def recording(*args, **kw):
+        shape = tuple(args[0].shape[1:])
+        calls[shape] = calls.get(shape, 0) + 1
+        if shape in K3_SHAPES and shape not in captured:
+            captured[shape] = ([None if a is None else
+                                tuple(t.clone() for t in a)
+                                if isinstance(a, tuple) else a.clone()
+                                for a in args], dict(kw))
+        return inner(*args, **kw)
+
+    recording.__dict__ = inner.__dict__
+    dk.sor_sweeps = recording
+    try:
+        yield
+    finally:
+        dk.sor_sweeps = inner
+
+
+def phase_k3(captured, calls):
+    """K3 against its plain version, bit-equal, on the arguments the
+    DeepFlow path gave it at its finest level (39x480x640, no match) and
+    its 60x80 level (with match)."""
+    import torch
+
+    from tee_optical_flow_torch.ops import deepflow_kernels as dk
+
+    log(f"K3 calls per level shape in the first DeepFlow run: "
+        f"{ {f'{h}x{w}': c for (h, w), c in calls.items()} }")
+    assert len(calls) == DF_LEVELS, calls
+    assert all(c == DF_FP_ITERS for c in calls.values()), calls
+    assert set(captured) == set(K3_SHAPES), (list(captured), K3_SHAPES)
+    out = {}
+    for shape in K3_SHAPES:
+        args, kw = captured[shape]
+        planes, match = args[:10], args[10] if len(args) > 10 else None
+        b, h, w = planes[0].shape
+        npx = b * h * w
+        got = dk.sor_sweeps(*planes, match, **kw)
+        ref = dk.sor_sweeps_plain(*planes, match, **kw)
+        err = max_abs(got, ref)
+        tag = f"K3 sor_sweeps ({b},{h},{w}) {'match' if match else 'no match'}"
+        log(f"{tag}: max|kernel - plain| = {err} (tolerance 0: bit-equal), "
+            f"max|du| {float(got[0].abs().max()):.4f} px")
+        assert err == 0.0, (tag, err)
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        ms = cuda_ms(lambda: dk.sor_sweeps(*planes, match, **kw), 10)
+        plain_ms = cuda_ms(lambda: dk.sor_sweeps_plain(*planes, match, **kw),
+                           2)
+        n_in = len(planes) + (3 if match else 0)
+        ops_px = kw["psi_iters"] * (
+            OPS_DF_WEIGHTS + OPS_DF_COEFS + (OPS_DF_MATCH if match else 0)
+            + kw["sor_iters"] * OPS_DF_SOR)
+        bms, by = bound((n_in + 2) * 4 * npx, ops_px * npx)
+        own = kw["psi_iters"] * (DF_PSI_BYTES + (12 if match else 0)
+                                 + 2 * kw["sor_iters"] * DF_HALF_BYTES)
+        log(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+            f"{bms:.4f} ms ({by}); own traffic ({own} B per pixel) at "
+            f"{own * npx / ms / 1e9:.3f} TB/s")
+        out[f"{h}x{w}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bms, bound_by=by,
+                               shape=[b, h, w], match=bool(match),
+                               path_calls=calls[shape])
+    return out
+
+
 def reset_counts():
+    from tee_optical_flow_torch.ops import deepflow_kernels as dk
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
     from tee_optical_flow_torch.ops import warp as tw
 
     tk.tvl1_outer_loop.launches = 0
     tk.tvl1_inner_block.launches = 0
     tw.median_filter_5x5.launches = 0
+    dk.sor_sweeps.launches = 0
 
 
 def read_counts():
+    from tee_optical_flow_torch.ops import deepflow_kernels as dk
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
     from tee_optical_flow_torch.ops import warp as tw
 
     return {"tvl1_outer_loop": tk.tvl1_outer_loop.launches,
             "tvl1_inner_block": tk.tvl1_inner_block.launches,
-            "median_filter_5x5": tw.median_filter_5x5.launches}
+            "median_filter_5x5": tw.median_filter_5x5.launches,
+            "sor_sweeps": dk.sor_sweeps.launches}
 
 
-def check_outputs(saved, n, h, w, truth):
+def check_outputs(saved, n, h, w, truth, bounds):
     """The HDF5 schema on what process_video wrote (or handed to its save
-    function), and the flow against the analytic motion on the wall."""
+    function), and the flow against the analytic motion on the wall,
+    within bounds = (median, p95) px."""
     from tee_optical_flow_torch.synthetic import echo_sector_masks
 
     flow, echo, masks = saved["flow"], saved["echo"], saved["masks"]
@@ -350,8 +466,8 @@ def check_outputs(saved, n, h, w, truth):
     motion = float(np.median(np.hypot(truth[..., 0], truth[..., 1])[:, wall]))
     log(f"flow vs analytic motion on the wall ({epe.size} px-pairs, median "
         f"true motion {motion:.3f} px): EPE median {med:.4f} px (bound "
-        f"{WALL_MEDIAN_EPE_PX}), p95 {p95:.4f} px (bound {WALL_P95_EPE_PX})")
-    assert med < WALL_MEDIAN_EPE_PX and p95 < WALL_P95_EPE_PX, (med, p95)
+        f"{bounds[0]}), p95 {p95:.4f} px (bound {bounds[1]})")
+    assert med < bounds[0] and p95 < bounds[1], (med, p95)
 
 
 def profile_clip(run_clip):
@@ -381,8 +497,26 @@ def profile_clip(run_clip):
         log(f"  {t:9.2f} ms {c:7d}x {name[:90]}")
 
 
-def phase_slice(clip, truth, has_h5py, workdir):
-    """The main path through its entry point, twice; counts from each."""
+# per path through process_video: the launches each clip must count (5
+# levels x 5 warps of K1 with 10 x 2 medians each, no level of 480x640
+# above the K2 bound; DeepFlow's 5 levels x 3 fixed points of K3) and the
+# wall EPE bounds
+PATHS = {
+    "TVL1": dict(counts={"tvl1_outer_loop": 25, "tvl1_inner_block": 0,
+                         "median_filter_5x5": 500, "sor_sweeps": 0},
+                 bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
+    "deepflow": dict(counts={"tvl1_outer_loop": 0, "tvl1_inner_block": 0,
+                             "median_filter_5x5": 0,
+                             "sor_sweeps": DF_LEVELS * DF_FP_ITERS},
+                     bounds=(DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX)),
+}
+
+
+def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
+               first_run=contextlib.nullcontext):
+    """One path through process_video, twice (the first inside
+    ``first_run()``); the counts of each run, the outputs' checks, a
+    profiled clip and the solver alone."""
     import torch
 
     from tee_optical_flow_torch.config import default_optical_flow_config
@@ -390,15 +524,13 @@ def phase_slice(clip, truth, has_h5py, workdir):
         compute_clip_flow, process_video,
     )
     from tee_optical_flow_torch.io.dicom import read_dicom_clip
-    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
 
     n, h, w = clip.shape
-    dcm = os.path.join(workdir, "echo_synthetic.dcm")
-    write_dicom_clip(dcm, np.repeat(clip[..., None], 3, axis=-1),
-                     frame_rate=FPS, pixel_spacing=SPACING_CM)
-    out = os.path.join(workdir, "echo_synthetic.hdf5")
+    log(f"--- path: process_video(mode='otsu', OF_algo={algo!r}, "
+        f"no_saliency=True) on {n}x{h}x{w}")
+    out = os.path.join(workdir, f"echo_synthetic_{algo}.hdf5")
     cfg = default_optical_flow_config()
     saved = {}
 
@@ -409,19 +541,20 @@ def phase_slice(clip, truth, has_h5py, workdir):
                             "frame_rate": metadata["frame_rate"],
                             "pixel_spacing": metadata["pixel_spacing"]})
 
-    kw = dict(verbose=False, mode="otsu", OF_algo="TVL1", no_saliency=True,
+    kw = dict(verbose=False, mode="otsu", OF_algo=algo, no_saliency=True,
               config=cfg)
     if not has_h5py:
         kw["_save_fn"] = capture
         log("h5py is absent: the schema is checked on the arrays handed to "
             "process_video's save function")
     clip_s, counts = [], []
-    for _ in range(2):
+    for run in range(2):
         get_stage_report(reset=True)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        process_video(dcm, out, None, **kw)
+        with first_run() if run == 0 else contextlib.nullcontext():
+            process_video(dcm, out, None, **kw)
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t0)
         counts.append(read_counts())
@@ -429,11 +562,7 @@ def phase_slice(clip, truth, has_h5py, workdir):
         log("  stages (host clock, s): " + ", ".join(
             f"{k} {v['total_s']:.3f}" for k, v in get_stage_report().items()))
     for c in counts:
-        # 5 levels x 5 warps, one batched K1 call each; no level of
-        # 480x640 passes the K2 size bound; 10 x 2 medians per K1 call
-        assert c["tvl1_outer_loop"] == 25, c
-        assert c["tvl1_inner_block"] == 0, c
-        assert c["median_filter_5x5"] == 500, c
+        assert c == PATHS[algo]["counts"], (algo, c)
     if has_h5py:
         import h5py
 
@@ -444,7 +573,7 @@ def phase_slice(clip, truth, has_h5py, workdir):
                                 ("nframes", "mode", "frame_rate",
                                  "pixel_spacing")})
             assert sorted(f.keys()) == ["RWaveTime", "echo", "flow", "otsu"]
-    check_outputs(saved, n, h, w, truth)
+    check_outputs(saved, n, h, w, truth, PATHS[algo]["bounds"])
     profile_clip(lambda: process_video(dcm, out, None, **kw))
 
     # the solver alone, on the same flow inputs, timed to completion
@@ -454,13 +583,63 @@ def phase_slice(clip, truth, has_h5py, workdir):
         np.ascontiguousarray(frames)).cuda()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    compute_clip_flow(images, "TVL1", cfg)
+    compute_clip_flow(images, algo, cfg)
     torch.cuda.synchronize()
     solver_s = time.perf_counter() - t0
-    log(f"steady-state clip: {clip_s[1]:.3f} s (first run {clip_s[0]:.3f} s);"
-        f" solver alone: {solver_s:.3f} s for {images.shape[0] - 1} pairs "
-        f"at {h}x{w}")
+    log(f"{algo} steady-state clip: {clip_s[1]:.3f} s (first run "
+        f"{clip_s[0]:.3f} s); solver alone: {solver_s:.3f} s for "
+        f"{images.shape[0] - 1} pairs at {h}x{w}")
     return counts[1], clip_s[1], solver_s
+
+
+def phase_saliency(clip):
+    """fine_grained_saliency of the clip's gray frames on the card against
+    the same call on the CPU, within 1e-4."""
+    import torch
+
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip
+    from tee_optical_flow_torch.ops.saliency import fine_grained_saliency
+
+    gray = gray_from_clip(torch.from_numpy(clip).cuda())
+    got = fine_grained_saliency(gray)
+    ref = fine_grained_saliency(gray.cpu())
+    err = float((got.cpu() - ref).abs().max())
+    log(f"saliency {tuple(gray.shape)}: max|card - CPU| = {err:.3g} "
+        f"(tolerance 1e-4)")
+    assert got.shape == gray.shape and err <= 1e-4, err
+
+
+def cpu_wall_reference(windows=(0, 3, 7)):
+    """The DeepFlow wall EPE of the port on the CPU at the production
+    settings, on windows of two pairs of the smoke's clip: the reference
+    for DF_WALL_*. Run with
+    python3 -c "import chip_smoke; chip_smoke.cpu_wall_reference()"."""
+    import torch
+
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow.pipeline import compute_clip_flow
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
+    from tee_optical_flow_torch.synthetic import echo_sector_masks
+
+    clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    wall = echo_sector_masks(CLIP_H, CLIP_W)["wall"].copy()
+    wall[:8] = wall[-8:] = False
+    wall[:, :8] = wall[:, -8:] = False
+    cf = np.float32(SPACING_CM * FPS)
+    for k in windows:
+        images = img2uint8(gray_from_clip(torch.from_numpy(
+            np.ascontiguousarray(clip[k:k + 3]))))
+        flow = compute_clip_flow(images, "deepflow",
+                                 default_optical_flow_config(),
+                                 device="cpu").numpy()
+        # stored as float16 cm/s, read back in px, as check_outputs does
+        px = (flow * cf).astype(np.float16).astype(np.float32) / cf
+        tr = truth[k:k + 2]
+        epe = np.hypot(px[..., 0] - tr[..., 0], px[..., 1] - tr[..., 1])
+        epe = epe[:, wall]
+        motion = np.median(np.hypot(tr[..., 0], tr[..., 1])[:, wall])
+        log(f"pairs {k}-{k + 1}: median motion {motion:.3f} px, EPE median "
+            f"{np.median(epe):.4f} px, p95 {np.percentile(epe, 95):.4f} px")
 
 
 def phase_k2_path():
@@ -487,11 +666,14 @@ def phase_k2_path():
     # the finest level: 5 warps x 10 blocks; 4 coarser levels: 5 warps
     assert counts["tvl1_inner_block"] == 50, counts
     assert counts["tvl1_outer_loop"] == 20, counts
+    assert counts["sor_sweeps"] == 0, counts
     return counts
 
 
 def main() -> int:
     import torch
+
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -500,36 +682,56 @@ def main() -> int:
     card, has_h5py = phase_setup()
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
+    k3_args, k3_calls = {}, {}
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
-        main_counts, clip_s, solver_s = phase_slice(clip, truth, has_h5py,
-                                                    workdir)
+        dcm = os.path.join(workdir, "echo_synthetic.dcm")
+        write_dicom_clip(dcm, np.repeat(clip[..., None], 3, axis=-1),
+                         frame_rate=FPS, pixel_spacing=SPACING_CM)
+        results = {algo: phase_path(
+            algo, dcm, clip, truth, has_h5py, workdir,
+            (lambda: record_k3(k3_args, k3_calls))
+            if algo == "deepflow" else contextlib.nullcontext)
+            for algo in PATHS}
+    k3 = phase_k3(k3_args, k3_calls)
+    del k3_args
+    phase_saliency(clip)
     k2_counts = phase_k2_path()
+    main_counts = results["TVL1"][0]
+    df_counts = results["deepflow"][0]
+    finest = f"{CLIP_H}x{CLIP_W}"
+    records["sor_sweeps"] = dict(k3[finest], levels={
+        k: v for k, v in k3.items() if k != finest})
     kernels = []
-    for name, route_src, replaces, counts, path in (
-            ("tvl1_outer_loop", "cuda",
+    for name, source, replaces, counts, path in (
+            ("tvl1_outer_loop", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:198",
              main_counts, "main: otsu+TVL1 33x480x640"),
-            ("median_filter_5x5", "cuda",
+            ("median_filter_5x5", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:248",
              main_counts, "main: otsu+TVL1 33x480x640"),
-            ("tvl1_inner_block", "cuda",
+            ("tvl1_inner_block", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:141",
-             k2_counts, "K2: compute_clip_flow 3x600x800")):
+             k2_counts, "K2: compute_clip_flow 3x600x800"),
+            ("sor_sweeps", "deepflow.cu",
+             "tee_optical_flow_tpu/ops/deepflow_pallas.py:62",
+             df_counts, "DeepFlow: otsu+deepflow 33x480x640")):
         rec = records[name]
         kernels.append({
-            "name": name, "route": route_src,
-            "source": "tee_optical_flow_torch/csrc/tvl1.cu",
+            "name": name, "route": "cuda",
+            "source": f"tee_optical_flow_torch/csrc/{source}",
             "replaces": replaces, "launches": counts[name], "path": path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            **({"eps0": rec["eps0"]} if "eps0" in rec else {}),
+            **{k: rec[k] for k in ("eps0", "shape", "path_calls", "levels")
+               if k in rec},
         })
-    log(f"clip_s {clip_s:.3f} solver_s {solver_s:.3f} total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    for algo, (_, clip_s, solver_s) in results.items():
+        log(f"{algo}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -127,8 +127,9 @@ class OpticalFlowCalculationConfig(_JsonMixin):
     # IPOL/OpenCV reference's own interpolator, production default) or
     # "bilinear" (hat weights)
     tvl1_interpolation: str = "bicubic"
-    # DeepFlow knobs: read and written for JSON compatibility; the DeepFlow
-    # solver is not yet ported (compute_clip_flow raises for it)
+    # DeepFlow knobs (ops/deepflow.py). deepflow_use_pallas is kept for
+    # JSON compatibility only: on a card the K3 kernels run at every
+    # level, whatever it says
     deepflow_alpha: float = 8.0
     deepflow_delta: float = 0.5
     deepflow_gamma: float = 5.0

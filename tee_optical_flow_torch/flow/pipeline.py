@@ -1,17 +1,20 @@
-"""DICOM -> masks -> dense flow -> HDF5: the production main path of the
-PyTorch port (the JAX package's flow/pipeline.py, otsu + TV-L1 path).
+"""DICOM -> masks -> dense flow -> HDF5: the production paths of the
+PyTorch port (the JAX package's flow/pipeline.py, otsu masks with TV-L1 or
+DeepFlow, on per-frame normalised or saliency flow input).
 
 Parity with reference process_video (calculate_optical_flow.py:478-625):
 
   * one device copy of the clip feeds the Otsu masks and the flow;
-  * TV-L1: all N-1 pairs are solved as one batch (ops/tvl1.py), with the
-    primal-dual loops as CUDA kernels on a card;
+  * TV-L1 and DeepFlow: all N-1 pairs are solved as one batch
+    (ops/tvl1.py, ops/deepflow.py), with the primal-dual loops and the SOR
+    solve as CUDA kernels on a card;
   * schema quirks preserved: duplicate-last-flow-frame (:599), flow scaled
     by pixel_spacing*frame_rate (:600), echo stored as rgb2gray floats.
 
 Not ported yet, and refused with NotImplementedError rather than run
-quietly: the segmentor modes (A4C, RVIO_2class, MouseRV_A4C), DeepFlow,
-WASE background compensation, saliency and companion waveforms.
+quietly: the segmentor modes (A4C, RVIO_2class, MouseRV_A4C), WASE
+background compensation (it needs the segmentor's ``bkgd`` mask) and
+companion waveforms.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from ..core import (
 from ..exceptions import ConfigurationError, OpticalFlowCalculationError
 from ..io.dicom import extract_metadata, read_dicom_clip
 from ..io.hdf5 import save_optical_flow_hdf5
+from ..ops.deepflow import deepflow_clip_flow
 from ..ops.imaging import gray_from_clip, img2uint8
+from ..ops.saliency import fine_grained_saliency
 from ..ops.tvl1 import tvl1_clip_flow
 from ..utils import safe_makedir, trace_stage
 from .segment import predict_movie_thres
@@ -58,16 +63,15 @@ def compute_clip_flow(images, of_algo: str = "TVL1",
     if algo not in ("tvl1", "deepflow"):
         raise OpticalFlowCalculationError(
             "OF_algo only supports deepflow or TVL1")
-    if algo == "deepflow":
-        raise NotImplementedError(
-            "DeepFlow is not ported yet: ROADMAP.md, 'Modules to port' "
-            "item 6 (DeepFlow; config 2)")
     images = as_device_tensor(images, device).to(torch.float32)
     n, h, w = images.shape
     if config.bucket_shapes and config.spatial_bucket > 1:
         hb, wb = bucketed_spatial(h, w, config.spatial_bucket)
         images = pad_spatial_edge(images, hb, wb)
-    flow = tvl1_clip_flow(images, config=config)
+    if algo == "tvl1":
+        flow = tvl1_clip_flow(images, config=config)
+    else:
+        flow = deepflow_clip_flow(images, config=config)
     return flow[:, :h, :w, :]
 
 
@@ -150,6 +154,11 @@ def process_video(dcm_path: str, save_path: str,
     if bkgd_comp not in ("WASE", "none"):
         raise OpticalFlowCalculationError(
             f"bkgd_comp value must be [WASE, none], got {bkgd_comp}!")
+    if bkgd_comp == "WASE":
+        raise NotImplementedError(
+            "WASE background compensation needs the segmentor's bkgd "
+            "mask, not ported yet: ROADMAP.md, 'Modules to port' items 5 "
+            "and 7")
     if mode in _SEGMENTOR_MODES:
         if segmentor_model is None:
             raise ConfigurationError(
@@ -161,18 +170,10 @@ def process_video(dcm_path: str, save_path: str,
         raise ConfigurationError(
             f"Input for mode must be [A4C, otsu, RVIO_2class, MouseRV_A4C], "
             f"not {mode}.")
-    if bkgd_comp == "WASE" or not no_saliency:
-        raise NotImplementedError(
-            "WASE background compensation and saliency are not ported "
-            "yet: ROADMAP.md, 'Modules to port' item 5")
     if include_waveforms:
         raise NotImplementedError(
             "companion waveforms are not ported yet: ROADMAP.md, "
             "'Modules to port' item 8")
-    if OF_algo.lower() == "deepflow":
-        raise NotImplementedError(
-            "DeepFlow is not ported yet: ROADMAP.md, 'Modules to port' "
-            "item 6 (DeepFlow; config 2)")
 
     # --- read + metadata (host) ---
     with trace_stage("dicom_read"):
@@ -212,9 +213,10 @@ def process_video(dcm_path: str, save_path: str,
         if nparr.shape[0] != nframes:  # drop frame-bucket padding
             mask_dict = {k: v[:nframes] for k, v in mask_dict.items()}
 
-    # --- flow input prep: per-frame img2uint8 (reference :586-588) ---
+    # --- flow input prep: per-frame img2uint8 (reference :586-588) or
+    # the fine-grained saliency map ---
     with trace_stage("flow_input_prep"):
-        images = img2uint8(gray)
+        images = img2uint8(gray) if no_saliency else fine_grained_saliency(gray)
 
     # --- flow (device, all pairs at once) ---
     with trace_stage("optical_flow"):

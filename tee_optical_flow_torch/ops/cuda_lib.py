@@ -1,10 +1,13 @@
-"""Build, load and call the port's CUDA kernels (``csrc/tvl1.cu``).
+"""Build, load and call the port's CUDA kernels (``csrc/*.cu``).
 
-The source is compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, loaded with ``ctypes``.
-The library lands in ``build/kernels/`` at the root of the checkout (a
-directory git ignores), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+The sources are compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``), one ``nvcc -c`` per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``: ``csrc/tvl1.cu`` (K1, K2 and the median) and
+``csrc/deepflow.cu`` (K3). The library lands in ``build/kernels/`` at the
+root of the checkout (a directory git ignores), named by a hash of the
+sources and the flags, so an edited source is rebuilt and unchanged ones
+are reused.
 
 Parity flags: ``--fmad=false`` keeps every multiply and add separately
 rounded, as the plain PyTorch versions and the JAX reference compute them
@@ -31,25 +34,31 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "tvl1.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the C functions' argument types; each returns an int, the launch's
+# cudaGetLastError (decoded by tvl1_error_string)
 _SIGNATURES = {
     "tvl1_median5x5": (_P, _P, _I, _I, _I, _P, _F, _P),
     "tvl1_primal": (_P,) * 11 + (_I, _I, _I, _F, _F, _P, _F, _P, _P),
     "tvl1_err_reduce": (_P, _I, _P, _P, _F, _I, _P),
     "tvl1_dual": (_P,) * 6 + (_I, _I, _I, _F, _P, _P),
     "tvl1_num_blocks": (_I, _I),
+    "deepflow_weights": (_P,) * 5 + (_I, _I, _I, _F, _P),
+    "deepflow_coefs": (_P,) * 22 + (_I, _I, _I, _F, _F, _F, _P),
+    "deepflow_sor_half": (_P,) * 9 + (_I, _I, _I, _I, _F, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
-# filled by the first load: the build's wall time (0 when reused) and
-# nvcc's resource report (-Xptxas -v: registers, spills per kernel)
+# filled by the first load: the build's wall time (0 when reused),
+# nvcc's resource report (-Xptxas -v: registers, spills per kernel) and
+# the library's path
 build_info = {"seconds": None, "ptxas": "", "path": None}
 
 
@@ -65,23 +74,39 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtvl1_{key}.so"
+    sources = sorted(CSRC.glob("*.cu"))
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        key.update(src.name.encode() + src.read_bytes())
+    out = BUILD_DIR / f"libtee_kernels_{key.hexdigest()[:16]}.so"
     if out.exists():
         build_info["seconds"] = 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    # a directory of this process's own: a concurrent build never sees
+    # half a file, and the finished library is moved in atomically
+    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    objs = [tmp / f"{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[1] for proc in procs]
+    failed = [f"nvcc failed on {src}:\n{log}" for src, proc, log
+              in zip(sources, procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp / out.name),
+             *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"nvcc failed to link {out.name}:\n{link.stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    os.replace(tmp / out.name, out)
+    shutil.rmtree(tmp, ignore_errors=True)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = proc.stderr
+    build_info["ptxas"] = "".join(logs)
     return out
 
 
@@ -100,6 +125,23 @@ def load_library() -> ctypes.CDLL:
         build_info["path"] = str(path)
         _lib = lib
     return _lib
+
+
+def check_inputs(name: str, tensors) -> None:
+    """Raise ValueError unless every tensor is a contiguous float32
+    (B, H, W) tensor of the first one's shape and device: what the
+    kernels' flat indexing assumes."""
+    ref = tensors[0]
+    if ref.ndim != 3:
+        raise ValueError(f"{name}: expected (B, H, W) tensors, got "
+                         f"{tuple(ref.shape)}")
+    for t in tensors:
+        if t.device != ref.device or t.dtype != torch.float32 \
+                or t.shape != ref.shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: every input must be a contiguous float32 "
+                f"{tuple(ref.shape)} tensor on {ref.device}; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

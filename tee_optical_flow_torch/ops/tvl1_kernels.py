@@ -30,7 +30,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_lib import check_launch, launch_context, load_library, ptr
+from .cuda_lib import (
+    check_inputs, check_launch, launch_context, load_library, ptr,
+)
 from .warp import (
     divergence, forward_diff, median_filter_5x5, median_filter_5x5_plain,
 )
@@ -139,20 +141,6 @@ def tvl1_outer_loop_plain(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21,
     return tuple(state)
 
 
-def _check_inputs(name, tensors):
-    ref = tensors[0]
-    if ref.ndim != 3:
-        raise ValueError(f"{name}: expected (B, H, W) tensors, got "
-                         f"{tuple(ref.shape)}")
-    for t in tensors:
-        if t.device != ref.device or t.dtype != torch.float32 \
-                or t.shape != ref.shape or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: every input must be a contiguous float32 "
-                f"{tuple(ref.shape)} tensor on {ref.device}; got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def _launch_steps(lib, stream, consts, state, n_iters, *, l_t, theta, taut,
                   err=None, thresh=0.0, partials=None, active=None,
                   nblocks=0):
@@ -187,7 +175,7 @@ def tvl1_inner_block(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
     if all(t.device.type == "cpu" for t in inputs):
         return tvl1_inner_block_plain(*inputs, n_iters=n_iters, l_t=l_t,
                                       theta=theta, taut=taut)
-    _check_inputs("tvl1_inner_block", inputs)
+    check_inputs("tvl1_inner_block", inputs)
     th, inv_grad = derived_constants(grad, l_t)
     state = tuple(t.clone() for t in (u, v, p11, p12, p21, p22))
     lib = load_library()
@@ -219,7 +207,7 @@ def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
             *inputs, outer_iters=outer_iters, inner_iters=inner_iters,
             use_median=use_median, l_t=l_t, theta=theta, taut=taut,
             epsilon=epsilon)
-    _check_inputs("tvl1_outer_loop", inputs)
+    check_inputs("tvl1_outer_loop", inputs)
     b, h, w = u.shape
     th, inv_grad = derived_constants(grad, l_t)
     u, v, p11, p12, p21, p22 = (t.clone() for t in (u, v, p11, p12, p21, p22))

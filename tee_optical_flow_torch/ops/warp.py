@@ -1,4 +1,4 @@
-"""Warping, stencils, pyramid and median primitives for the TV-L1 solver
+"""Warping, stencils, pyramid and median primitives for the flow solvers
 (the JAX package's ops/warp.py), as plain PyTorch batched over the leading
 (pair) axis, on whatever device the tensors lie.
 
@@ -104,6 +104,37 @@ def _gather_warp(imgs: Sequence[torch.Tensor], ru: torch.Tensor,
             term = wy * rowacc[i]
             outs[i] = term if outs[i] is None else outs[i] + term
     return tuple(outs)
+
+
+def bilinear_warp(img: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Sample img at (x + u, y + v) with bilinear interpolation, the
+    coordinates clamped to the border (replicate). img/u/v: (B, H, W).
+    The JAX package's gather warp (ops/warp.py:56-85), weights and sums in
+    its order."""
+    b, h, w = img.shape
+    dev = img.device
+    rows = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
+    cols = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
+    ys = torch.clamp(rows + v, 0.0, h - 1.0)
+    xs = torch.clamp(cols + u, 0.0, w - 1.0)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = ys - y0
+    wx = xs - x0
+    y0i = y0.to(torch.int64)
+    x0i = x0.to(torch.int64)
+    y1i = torch.clamp_max(y0i + 1, h - 1)
+    x1i = torch.clamp_max(x0i + 1, w - 1)
+    flat = img.reshape(b, h * w)
+
+    def gather(yy, xx):
+        idx = (yy * w + xx).reshape(b, h * w)
+        return torch.gather(flat, 1, idx).reshape(b, h, w)
+
+    top = gather(y0i, x0i) * (1 - wx) + gather(y0i, x1i) * wx
+    bot = gather(y1i, x0i) * (1 - wx) + gather(y1i, x1i) * wx
+    return top * (1 - wy) + bot * wy
 
 
 def warp_many_shift(imgs, u: torch.Tensor, v: torch.Tensor,

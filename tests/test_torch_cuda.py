@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``cuda``; without a CUDA device every test skips, decided
+"""The port's CUDA kernels (K1, K2, the median and K3) against their plain
+PyTorch versions, on the card. Marked ``cuda``; without a CUDA device every test skips, decided
 inside the ``card`` fixture so that every worker collects the same tests.
 
 On the machine with the card (which has no JAX, so the repo's conftest
@@ -12,19 +12,25 @@ Tolerances: the kernels compute each step in the plain version's
 operation order with separately rounded operations (built with
 --fmad=false), so K2, K1 at epsilon=0 and the median are bit-equal. At
 epsilon > 0 the per-pair error is summed in another order than
-torch.sum, so a pair may stop one step apart: 0.05 px max-abs.
+torch.sum, so a pair may stop one step apart: 0.05 px max-abs. K3 (the
+DeepFlow SOR solve) is bit-equal, with and without the matching term.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tee_optical_flow_torch.ops import deepflow_kernels as dk
 from tee_optical_flow_torch.ops import tvl1_kernels as tk
 from tee_optical_flow_torch.ops import warp as tw
 
 pytestmark = pytest.mark.cuda
 
 SHAPES = {"small": (2, 40, 48), "full": (4, 480, 640)}
+# K3: an odd shape, and the DeepFlow path's finest level (39 pairs)
+DF_SHAPES = {"small": (2, 21, 37), "full": (39, 480, 640)}
+DF_KW = dict(psi_iters=3, sor_iters=12, omega=1.6, alpha=8.0, delta=0.5,
+             gamma=5.0, beta=0.3)
 KW = dict(l_t=0.15 * 0.3, theta=0.3, taut=0.25 / 0.3)
 
 
@@ -111,3 +117,45 @@ def test_wrappers_refuse_bad_inputs(card):
                             n_iters=1, **KW)
     with pytest.raises(ValueError):
         tw.median_filter_5x5(args[4].transpose(1, 2))
+
+
+def _df_level(shape, device, seed=0):
+    """K3's ten planes and a matching triple, random at the scales of a
+    real level (the JAX package's parity inputs)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def f(scale):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    planes = [f(8.0), f(8.0), f(2.0), f(2.0), f(2.0),  # i1wx .. i1wyy
+              f(40.0), f(8.0), f(8.0),                 # it, itx, ity
+              f(0.8), f(0.8)]                          # u0, v0
+    match = (f(1.0), f(1.0), f(1.0).abs())
+    return planes, match
+
+
+@pytest.mark.parametrize("with_match", [False, True])
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_sor_sweeps_bit_equal(card, size, with_match):
+    planes, match = _df_level(DF_SHAPES[size], card)
+    match = match if with_match else None
+    before_in = [t.clone() for t in planes + list(match or ())]
+    before = dk.sor_sweeps.launches
+    got = dk.sor_sweeps(*planes, match, **DF_KW)
+    assert dk.sor_sweeps.launches == before + 1
+    ref = dk.sor_sweeps_plain(*planes, match, **DF_KW)
+    assert _max_abs(got, ref) == 0.0
+    assert float(got[0].abs().max()) > 0.1  # the solve moved
+    # inputs untouched, as the JAX function leaves them
+    for a, c in zip(before_in, planes + list(match or ())):
+        assert torch.equal(a, c)
+
+
+def test_sor_sweeps_refuses_bad_inputs(card):
+    planes, match = _df_level(DF_SHAPES["small"], card)
+    for bad in (planes[0].double(), planes[0].cpu(),
+                planes[0].transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError):
+            dk.sor_sweeps(bad, *planes[1:], None, **DF_KW)
+    with pytest.raises(ValueError):
+        dk.sor_sweeps(*planes, match[:2], **DF_KW)

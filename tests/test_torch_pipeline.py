@@ -131,11 +131,13 @@ def test_unported_paths_are_refused(runs, tmp_path):
     kw = dict(config=TorchConfig(**REDUCED), device="cpu")
     with pytest.raises(NotImplementedError, match="SAM"):
         t_pipe.process_video(dcm, out, lambda x: x, mode="A4C", **kw)
-    with pytest.raises(NotImplementedError, match="DeepFlow"):
+    # WASE needs the segmentor's bkgd mask, so it waits for SAM
+    with pytest.raises(NotImplementedError, match="WASE"):
+        t_pipe.process_video(dcm, out, lambda x: x, mode="A4C",
+                             bkgd_comp="WASE", OF_algo="deepflow", **kw)
+    with pytest.raises(NotImplementedError, match="waveforms"):
         t_pipe.process_video(dcm, out, None, mode="otsu", no_saliency=True,
-                             OF_algo="deepflow", **kw)
-    with pytest.raises(NotImplementedError, match="saliency"):
-        t_pipe.process_video(dcm, out, None, mode="otsu", **kw)
+                             include_waveforms=True, **kw)
     assert not os.path.exists(out)
 
 
