@@ -6,8 +6,8 @@ Builds the port's CUDA kernels from tee_optical_flow_torch/csrc/ into
 one library (one nvcc compile per source, all at once, then one link),
 drives the port's paths through their entry points under the production
 config, and holds each kernel against its plain PyTorch version on the
-card at the shapes its path gives it (K3 on the very arguments the
-DeepFlow path handed it):
+card at the shapes its path gives it (K1 and K3 also on the very
+arguments the TV-L1 and the DeepFlow path handed them):
 
   * TV-L1 (BASELINE config 1): a 33-frame 480x640 synthetic echo DICOM
     through process_video(mode="otsu", OF_algo="TVL1", no_saliency=True);
@@ -17,7 +17,8 @@ DeepFlow path handed it):
   * K2's path: a 600x800 clip through compute_clip_flow.
 
 It checks what comes out (schema, wall end-point error against the
-analytic motion, launch counts per path). Imports nothing of JAX. Exits
+analytic motion, launch counts per path, K1's one device launch per
+call). Imports nothing of JAX. Exits
 non-zero, with no result line, when there is no CUDA device or a phase
 fails.
 
@@ -58,9 +59,13 @@ MAIN_PAIRS = 39
 # 28 float ops in the primal and 28 in the dual (+5 for the epsilon
 # error), a 5x5 median 9 + 66 compare-exchanges of 2 ops each per plane
 OPS_STEP, OPS_ERR, OPS_MEDIAN_PLANE = 56, 5, 150
-# bytes a step of csrc/tvl1.cu moves per pixel: the primal reads 11 planes
-# and writes 2, the dual reads 6 and writes 4 (neighbours from cache)
-STEP_BYTES = (11 + 2 + 6 + 4) * 4
+# bytes a step of csrc/tvl1.cu moves per pixel (neighbours and halos from
+# cache): K1's fused step reads 11 planes and writes 6; K2's two launches
+# read 11 and write 2 (primal), then read 6 and write 4 (dual)
+K1_STEP_BYTES = (11 + 6) * 4
+K2_STEP_BYTES = (11 + 2 + 6 + 4) * 4
+# and a median of u and v: each plane read once and written once
+MEDIAN_BYTES = 2 * 2 * 4
 
 # flow sanity on the wall: end-point error against the analytic motion.
 # The port's CPU run of the same clip at the same settings measured a
@@ -71,6 +76,20 @@ WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX = 0.1, 0.25
 # production settings, pairs 0-1, 3-4 and 7-8, median motion 0.44-2.29
 # px) measured a median of 0.034-0.044 px and a p95 of 0.098-0.119 px
 DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX = 0.13, 0.36
+
+# the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
+# its plain version on the path's own arguments at the finest and the
+# coarsest level
+TV_LEVELS, TV_WARPS = 5, 5
+K1_SHAPES = ((CLIP_H, CLIP_W), (197, 262))
+# the device kernels of each source, summed per clip by the profiler; a
+# K1 call must launch the first of csrc/tvl1.cu's once and none of the
+# others
+TVL1_DEVICE_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
+                       "primal_kernel", "dual_kernel")
+DEVICE_KERNELS = {"tvl1.cu": TVL1_DEVICE_KERNELS,
+                  "deepflow.cu": ("weights_kernel", "coefs_kernel",
+                                  "sor_half_kernel")}
 
 # the DeepFlow path: 5 levels x 3 fixed points, one K3 call each; K3 is
 # held against its plain version at the finest level and at 60x80
@@ -174,7 +193,7 @@ def level_inputs(frames_u8, flow_px, device):
 
 
 def k1_active_work(args, *, outer_iters, inner_iters, epsilon, l_t, theta,
-                   taut):
+                   taut, **_):
     """(pair-steps, pair-medians) that the epsilon stop lets run on these
     inputs: the plain version's loop (tvl1_outer_loop_plain), counting
     the active pairs at each median and each step."""
@@ -242,7 +261,10 @@ def phase_setup():
 
 def phase_kernels(clip, truth):
     """Each kernel's wrapper against its plain version on the same card
-    tensors, at the shapes the main path gives it."""
+    tensors, at the shapes its path gives it: K1 at the main path's finest
+    level (here on inputs built from the true flow; phase_k1 holds it on
+    the path's own arguments), K2 and the standalone median at the K2
+    path's finest level."""
     import torch
 
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
@@ -260,23 +282,6 @@ def phase_kernels(clip, truth):
     assert b == MAIN_PAIRS, b
     npx = b * h * w
 
-    # the median alone: bit-equal
-    u = args[4]
-    got = tw.median_filter_5x5(u)
-    ref = tw.median_filter_5x5_plain(u)
-    err = float((got - ref).abs().max())
-    log(f"median 5x5 ({b},{h},{w}): max|kernel - plain| = {err} "
-        f"(tolerance 0: bit-equal)")
-    assert torch.equal(got, ref), err
-    ms = cuda_ms(lambda: tw.median_filter_5x5(u), 20)
-    plain_ms = cuda_ms(lambda: tw.median_filter_5x5_plain(u), 5)
-    bms, by = bound(2 * 4 * npx, OPS_MEDIAN_PLANE * npx)
-    log(f"median: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-        f"{bms:.4f} ms ({by})")
-    records["median_filter_5x5"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bms,
-                                        bound_by=by)
-
     # K1 at the full 10 x 30 budget, epsilon 0 and the production 0.01
     kw = dict(outer_iters=10, inner_iters=30, use_median=True, l_t=lt,
               theta=theta, taut=taut)
@@ -288,28 +293,24 @@ def phase_kernels(clip, truth):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max_abs(got, ref)
-        log(f"K1 tvl1_outer_loop ({b},{h},{w}) eps={eps}: max|kernel - "
-            f"plain| = {err} (tolerance {tol}"
+        log(f"K1 tvl1_outer_loop ({b},{h},{w}) true-flow inputs eps={eps}: "
+            f"max|kernel - plain| = {err} (tolerance {tol}"
             f"{': bit-equal' if tol == 0 else ': a pair may stop one step apart on an ulp of its error sum'})")
         assert err <= tol, (eps, err)
         ms = cuda_ms(lambda: tk.tvl1_outer_loop(*args, epsilon=eps, **kw), 3)
         if eps > 0:
-            steps, medians = k1_active_work(args, epsilon=eps, **{
-                k: kw[k] for k in ("outer_iters", "inner_iters", "l_t",
-                                   "theta", "taut")})
+            steps, medians = k1_active_work(args, epsilon=eps, **kw)
             ops_px = (steps * (OPS_STEP + OPS_ERR)
                       + medians * 2 * OPS_MEDIAN_PLANE) * h * w
-            log(f"K1 eps={eps}: {steps} of {b * 300} pair-steps and "
-                f"{medians} of {b * 10} pair-medians ran")
         else:
+            steps, medians = b * 300, b * 10
             ops_px = b * (300 * OPS_STEP + 10 * 2 * OPS_MEDIAN_PLANE) * h * w
         bms, by = bound(16 * 4 * npx, ops_px)
-        log(f"K1 eps={eps}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
-            f"bound {bms:.4f} ms ({by})")
-        if eps == 0.0:
-            log(f"K1 eps=0: the kernels' own traffic ({STEP_BYTES} B per "
-                f"pixel and step) streams at "
-                f"{300 * STEP_BYTES * npx / ms / 1e9:.3f} TB/s")
+        own = (steps * K1_STEP_BYTES + medians * MEDIAN_BYTES) * h * w
+        log(f"K1 true-flow eps={eps}: {steps} of {b * 300} pair-steps and "
+            f"{medians} of {b * 10} pair-medians ran; {ms:.3f} ms kernel, "
+            f"{plain_ms:.3f} ms plain, bound {bms:.4f} ms ({by}); own "
+            f"traffic at {own / ms / 1e9:.3f} TB/s")
         k1[eps] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by)
     records["tvl1_outer_loop"] = dict(k1[0.01], eps0=k1[0.0])
@@ -319,6 +320,7 @@ def phase_kernels(clip, truth):
     k2_clip, k2_truth = echo_clip(3, 608, 800, seed=1)
     args2 = level_inputs(k2_clip, k2_truth, dev)
     b2, h2, w2 = args2[0].shape
+    npx2 = b2 * h2 * w2
     kw2 = dict(n_iters=30, l_t=lt, theta=theta, taut=taut)
     got = tk.tvl1_inner_block(*args2, **kw2)
     ref = tk.tvl1_inner_block_plain(*args2, **kw2)
@@ -328,14 +330,31 @@ def phase_kernels(clip, truth):
     assert err == 0.0, err
     ms = cuda_ms(lambda: tk.tvl1_inner_block(*args2, **kw2), 10)
     plain_ms = cuda_ms(lambda: tk.tvl1_inner_block_plain(*args2, **kw2), 3)
-    npx2 = b2 * h2 * w2
     bms, by = bound(16 * 4 * npx2, 30 * OPS_STEP * npx2)
     log(f"K2: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, bound "
         f"{bms:.4f} ms ({by}); own traffic at "
-        f"{30 * STEP_BYTES * npx2 / ms / 1e9:.3f} TB/s")
+        f"{30 * K2_STEP_BYTES * npx2 / ms / 1e9:.3f} TB/s")
     records["tvl1_inner_block"] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms, bound_ms=bms,
                                        bound_by=by)
+
+    # the standalone median, which the K2 levels call between blocks:
+    # bit-equal
+    u = args2[4]
+    got = tw.median_filter_5x5(u)
+    ref = tw.median_filter_5x5_plain(u)
+    err = float((got - ref).abs().max())
+    log(f"median 5x5 ({b2},{h2},{w2}): max|kernel - plain| = {err} "
+        f"(tolerance 0: bit-equal)")
+    assert torch.equal(got, ref), err
+    ms = cuda_ms(lambda: tw.median_filter_5x5(u), 20)
+    plain_ms = cuda_ms(lambda: tw.median_filter_5x5_plain(u), 5)
+    bms, by = bound(2 * 4 * npx2, OPS_MEDIAN_PLANE * npx2)
+    log(f"median: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+        f"{bms:.4f} ms ({by})")
+    records["median_filter_5x5"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bms,
+                                        bound_by=by, shape=[b2, h2, w2])
     return records
 
 
@@ -415,6 +434,127 @@ def phase_k3(captured, calls):
     return out
 
 
+@contextlib.contextmanager
+def record_k1(captured, calls):
+    """Wrap the K1 wrapper that _tvl1_scale calls, as record_k3 wraps K3:
+    count its calls per level shape in ``calls`` and keep, in
+    ``captured``, a copy of the arguments and keywords of the first call
+    at each shape of K1_SHAPES; restore it on exit."""
+    from tee_optical_flow_torch.ops import tvl1 as tt
+    from tee_optical_flow_torch.ops import tvl1_kernels as tk
+
+    inner = tk.tvl1_outer_loop
+
+    def recording(*args, **kw):
+        shape = tuple(args[0].shape[1:])
+        calls[shape] = calls.get(shape, 0) + 1
+        if shape in K1_SHAPES and shape not in captured:
+            captured[shape] = ([a.clone() for a in args], dict(kw))
+        return inner(*args, **kw)
+
+    recording.__dict__ = inner.__dict__
+    tk.tvl1_outer_loop = tt.tvl1_outer_loop = recording
+    try:
+        yield
+    finally:
+        tk.tvl1_outer_loop = tt.tvl1_outer_loop = inner
+
+
+def device_launches(fn, names) -> int:
+    """Device kernels named in ``names`` that one call of fn() launches,
+    counted by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a kernel of no interest on each side of the call, so that an
+        # event lost at either end of the trace is not one of fn's
+        mark.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        mark.add_(1)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(f"::{n}(" in e.name for n in names))
+
+
+def phase_k1(captured, calls):
+    """K1 against its plain version on the arguments the TV-L1 path gave it
+    at its finest (39x480x640) and coarsest (39x197x262) level: bit-equal
+    at epsilon 0, within 0.05 px at the path's epsilon 0.01. Times each
+    with CUDA events and counts its device launches per call."""
+    import torch
+
+    from tee_optical_flow_torch.ops import tvl1_kernels as tk
+
+    log(f"K1 calls per level shape in the first TV-L1 run: "
+        f"{ {f'{h}x{w}': c for (h, w), c in calls.items()} }")
+    assert len(calls) == TV_LEVELS, calls
+    assert all(c == TV_WARPS for c in calls.values()), calls
+    assert set(captured) == set(K1_SHAPES), (list(captured), K1_SHAPES)
+    out = {}
+    for shape in K1_SHAPES:
+        args, kw = captured[shape]
+        assert kw["epsilon"] == 0.01 and kw["use_median"], kw
+        b, h, w = args[0].shape
+        npx = b * h * w
+        for eps, tol in ((0.01, 0.05), (0.0, 0.0)):
+            kwe = dict(kw, epsilon=eps)
+            tag = f"K1 tvl1_outer_loop ({b},{h},{w}) path args eps={eps}"
+            got = tk.tvl1_outer_loop(*args, **kwe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = tk.tvl1_outer_loop_plain(*args, **kwe)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max_abs(got, ref)
+            log(f"{tag}: max|kernel - plain| = {err} (tolerance {tol}"
+                f"{': bit-equal' if tol == 0 else ': a pair may stop one step apart on an ulp of its error sum'})")
+            assert err <= tol, (tag, err)
+            assert all(bool(torch.isfinite(t).all()) for t in got)
+            ms = cuda_ms(lambda: tk.tvl1_outer_loop(*args, **kwe), 5)
+            dev = device_launches(lambda: tk.tvl1_outer_loop(*args, **kwe),
+                                  TVL1_DEVICE_KERNELS)
+            assert dev == 1, (tag, dev)
+            outer, inner = kw["outer_iters"], kw["inner_iters"]
+            if eps > 0:
+                steps, medians = k1_active_work(args, **kwe)
+            else:
+                steps, medians = b * outer * inner, b * outer
+            ops_px = (steps * (OPS_STEP + (OPS_ERR if eps > 0 else 0))
+                      + medians * 2 * OPS_MEDIAN_PLANE) * h * w
+            bms, by = bound(16 * 4 * npx, ops_px)
+            own = (steps * K1_STEP_BYTES + medians * MEDIAN_BYTES) * h * w
+            log(f"{tag}: {steps} of {b * outer * inner} pair-steps and "
+                f"{medians} of {b * outer} pair-medians ran; {ms:.3f} ms "
+                f"kernel, {plain_ms:.3f} ms plain, bound {bms:.4f} ms ({by}), "
+                f"{dev} device launches per call; own traffic "
+                f"({K1_STEP_BYTES} B per pixel and step, {MEDIAN_BYTES} per "
+                f"median) at {own / ms / 1e9:.3f} TB/s")
+            out[(shape, eps)] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, shape=[b, h, w],
+                                     pair_steps=steps, pair_medians=medians,
+                                     device_launches=dev)
+    # the grid barrier's cost: one 16x32 pair (one tile) at epsilon 0 is
+    # nothing but phases; an upper bound, as the wrapper's own small
+    # launches between calls are in the time
+    args, kw = captured[K1_SHAPES[0]]
+    one = [a[:1, :16, :32].contiguous() for a in args]
+    kw0 = dict(kw, epsilon=0.0)
+    phases = kw["outer_iters"] * (kw["inner_iters"] + 1)
+    ms = cuda_ms(lambda: tk.tvl1_outer_loop(*one, **kw0), 10)
+    log(f"K1 on one 16x32 pair at eps 0 ({phases} phases, one tile each): "
+        f"{ms:.3f} ms, {1e3 * ms / phases:.2f} us per phase and grid "
+        f"barrier")
+    out["barrier_us"] = 1e3 * ms / phases
+    return out
+
+
 def reset_counts():
     from tee_optical_flow_torch.ops import deepflow_kernels as dk
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
@@ -473,7 +613,9 @@ def check_outputs(saved, n, h, w, truth, bounds):
 def profile_clip(run_clip):
     """One more clip under torch.profiler: the device's busy share of the
     clip's wall time (kernel time over wall, one stream) and the kernels
-    that take it. The profiler's own cost inflates the wall time."""
+    that take it, with each kernel source's sum. The profiler's own cost
+    inflates the wall time. Returns the launches of each csrc/tvl1.cu
+    kernel in the clip."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -495,19 +637,36 @@ def profile_clip(run_clip):
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"  {t:9.2f} ms {c:7d}x {name[:90]}")
+    launches = {}
+    for source, names in DEVICE_KERNELS.items():
+        ours = {n: (c, t) for name, (c, t) in by_name.items()
+                for n in names if f"::{n}(" in name}
+        if ours:
+            log(f"  csrc/{source}'s kernels in the clip: "
+                f"{sum(t for _, t in ours.values()):.2f} ms over "
+                f"{sum(c for c, _ in ours.values())} launches ("
+                + ", ".join(f"{n} {t:.2f} ms {c}x"
+                            for n, (c, t) in ours.items()) + ")")
+        if source == "tvl1.cu":
+            launches = {n: c for n, (c, _) in ours.items()}
+    return launches
 
 
 # per path through process_video: the launches each clip must count (5
-# levels x 5 warps of K1 with 10 x 2 medians each, no level of 480x640
-# above the K2 bound; DeepFlow's 5 levels x 3 fixed points of K3) and the
-# wall EPE bounds
+# levels x 5 warps of K1, each one device launch with the medians inside,
+# no level of 480x640 above the K2 bound; DeepFlow's 5 levels x 3 fixed
+# points of K3), the only csrc/tvl1.cu kernels its profiled clip may show,
+# and the wall EPE bounds
 PATHS = {
-    "TVL1": dict(counts={"tvl1_outer_loop": 25, "tvl1_inner_block": 0,
-                         "median_filter_5x5": 500, "sor_sweeps": 0},
+    "TVL1": dict(counts={"tvl1_outer_loop": TV_LEVELS * TV_WARPS,
+                         "tvl1_inner_block": 0, "median_filter_5x5": 0,
+                         "sor_sweeps": 0},
+                 device={"outer_loop_kernel"},
                  bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
     "deepflow": dict(counts={"tvl1_outer_loop": 0, "tvl1_inner_block": 0,
                              "median_filter_5x5": 0,
                              "sor_sweeps": DF_LEVELS * DF_FP_ITERS},
+                     device=set(),
                      bounds=(DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX)),
 }
 
@@ -574,7 +733,8 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
                                  "pixel_spacing")})
             assert sorted(f.keys()) == ["RWaveTime", "echo", "flow", "otsu"]
     check_outputs(saved, n, h, w, truth, PATHS[algo]["bounds"])
-    profile_clip(lambda: process_video(dcm, out, None, **kw))
+    device = profile_clip(lambda: process_video(dcm, out, None, **kw))
+    assert set(device) <= set(PATHS[algo]["device"]), (algo, device)
 
     # the solver alone, on the same flow inputs, timed to completion
     _, arr = read_dicom_clip(dcm)
@@ -663,8 +823,10 @@ def phase_k2_path():
         f"(first call), launches {counts}")
     assert flow.shape == (2, K2_H, K2_W, 2), tuple(flow.shape)
     assert bool(torch.isfinite(flow).all())
-    # the finest level: 5 warps x 10 blocks; 4 coarser levels: 5 warps
+    # the finest level: 5 warps x 10 blocks, each after a median of u and
+    # v; the 4 coarser levels: 5 warps of K1, the medians inside
     assert counts["tvl1_inner_block"] == 50, counts
+    assert counts["median_filter_5x5"] == 100, counts
     assert counts["tvl1_outer_loop"] == 20, counts
     assert counts["sor_sweeps"] == 0, counts
     return counts
@@ -682,7 +844,9 @@ def main() -> int:
     card, has_h5py = phase_setup()
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
-    k3_args, k3_calls = {}, {}
+    k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
+    recorders = {"TVL1": lambda: record_k1(k1_args, k1_calls),
+                 "deepflow": lambda: record_k3(k3_args, k3_calls)}
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
@@ -690,13 +854,12 @@ def main() -> int:
         dcm = os.path.join(workdir, "echo_synthetic.dcm")
         write_dicom_clip(dcm, np.repeat(clip[..., None], 3, axis=-1),
                          frame_rate=FPS, pixel_spacing=SPACING_CM)
-        results = {algo: phase_path(
-            algo, dcm, clip, truth, has_h5py, workdir,
-            (lambda: record_k3(k3_args, k3_calls))
-            if algo == "deepflow" else contextlib.nullcontext)
-            for algo in PATHS}
+        results = {algo: phase_path(algo, dcm, clip, truth, has_h5py,
+                                    workdir, recorders[algo])
+                   for algo in PATHS}
+    k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
-    del k3_args
+    del k1_args, k3_args
     phase_saliency(clip)
     k2_counts = phase_k2_path()
     main_counts = results["TVL1"][0]
@@ -704,6 +867,13 @@ def main() -> int:
     finest = f"{CLIP_H}x{CLIP_W}"
     records["sor_sweeps"] = dict(k3[finest], levels={
         k: v for k, v in k3.items() if k != finest})
+    coarsest = K1_SHAPES[-1]
+    records["tvl1_outer_loop"] = dict(
+        k1[(K1_SHAPES[0], 0.01)], eps0=k1[(K1_SHAPES[0], 0.0)],
+        barrier_us=k1["barrier_us"],
+        levels={f"{coarsest[0]}x{coarsest[1]}": dict(
+            k1[(coarsest, 0.01)], eps0=k1[(coarsest, 0.0)])},
+        true_flow=records["tvl1_outer_loop"])
     kernels = []
     for name, source, replaces, counts, path in (
             ("tvl1_outer_loop", "tvl1.cu",
@@ -711,7 +881,7 @@ def main() -> int:
              main_counts, "main: otsu+TVL1 33x480x640"),
             ("median_filter_5x5", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:248",
-             main_counts, "main: otsu+TVL1 33x480x640"),
+             k2_counts, "K2: compute_clip_flow 3x600x800"),
             ("tvl1_inner_block", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:141",
              k2_counts, "K2: compute_clip_flow 3x600x800"),
@@ -726,7 +896,10 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            **{k: rec[k] for k in ("eps0", "shape", "path_calls", "levels")
+            **{k: rec[k] for k in ("eps0", "shape", "path_calls", "levels",
+                                   "pair_steps", "pair_medians",
+                                   "device_launches", "barrier_us",
+                                   "true_flow")
                if k in rec},
         })
     for algo, (_, clip_s, solver_s) in results.items():

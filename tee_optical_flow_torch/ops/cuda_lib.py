@@ -45,11 +45,11 @@ _F = ctypes.c_float
 # the C functions' argument types; each returns an int, the launch's
 # cudaGetLastError (decoded by tvl1_error_string)
 _SIGNATURES = {
-    "tvl1_median5x5": (_P, _P, _I, _I, _I, _P, _F, _P),
-    "tvl1_primal": (_P,) * 11 + (_I, _I, _I, _F, _F, _P, _F, _P, _P),
-    "tvl1_err_reduce": (_P, _I, _P, _P, _F, _I, _P),
-    "tvl1_dual": (_P,) * 6 + (_I, _I, _I, _F, _P, _P),
-    "tvl1_num_blocks": (_I, _I),
+    "tvl1_median5x5": (_P, _P, _I, _I, _I, _P),
+    "tvl1_primal": (_P,) * 11 + (_I, _I, _I, _F, _F, _P),
+    "tvl1_dual": (_P,) * 6 + (_I, _I, _I, _F, _P),
+    "tvl1_outer_loop": (_P,) * 14 + (_I,) * 7 + (_F,) * 4 + (_P,),
+    "tvl1_num_tiles": (_I, _I),
     "deepflow_weights": (_P,) * 5 + (_I, _I, _I, _F, _P),
     "deepflow_coefs": (_P,) * 22 + (_I, _I, _I, _F, _F, _F, _P),
     "deepflow_sor_half": (_P,) * 9 + (_I, _I, _I, _I, _F, _F, _P),

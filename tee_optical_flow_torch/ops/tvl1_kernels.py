@@ -14,28 +14,28 @@ plain PyTorch version beside it.
     version: ``tvl1_inner_block_plain`` (the JAX ``tvl1_inner_block_xla``).
 
 On a CUDA tensor a wrapper launches the kernels of ``csrc/tvl1.cu`` on the
-current stream; on a CPU tensor it runs the plain version. It never falls
-back. Each wrapper counts its calls in its ``launches`` attribute. The
-kernels' design, and what bounds them, is in the source's head note.
+current stream (K1: one persistent cooperative launch per call; K2: two
+launches per step); on a CPU tensor it runs the plain version. It never
+falls back. Each wrapper counts its calls in its ``launches`` attribute.
+The kernels' design, and what bounds them, is in the source's head note.
 
 The wrappers return new tensors and leave their inputs untouched, as the
-JAX functions do: the state is copied once per call and then updated in
-place by the kernels.
+JAX functions do: the state is copied once per call; K2 updates the copy
+in place, K1 ping-pongs each pair between it and a scratch copy and ends
+with the result in it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from .cuda_lib import (
     check_inputs, check_launch, launch_context, load_library, ptr,
 )
-from .warp import (
-    divergence, forward_diff, median_filter_5x5, median_filter_5x5_plain,
-)
+from .warp import divergence, forward_diff, median_filter_5x5_plain
 
 _GRAD_EPS = 1e-10
 
@@ -141,29 +141,21 @@ def tvl1_outer_loop_plain(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21,
     return tuple(state)
 
 
-def _launch_steps(lib, stream, consts, state, n_iters, *, l_t, theta, taut,
-                  err=None, thresh=0.0, partials=None, active=None,
-                  nblocks=0):
-    """n_iters x (primal, [err_reduce], dual) on the state, in place."""
+def _launch_steps(lib, stream, consts, state, n_iters, *, l_t, theta, taut):
+    """n_iters x (primal, dual) on the state, in place."""
     rho_c, i1wx, i1wy, th, inv_grad = consts
     u, v, p11, p12, p21, p22 = state
     b, h, w = u.shape
     c_lt, c_theta, c_taut = (ctypes.c_float(l_t), ctypes.c_float(theta),
                              ctypes.c_float(taut))
-    c_thresh = ctypes.c_float(thresh)
     for _ in range(n_iters):
         check_launch("tvl1_primal", lib.tvl1_primal(
             ptr(rho_c), ptr(i1wx), ptr(i1wy), ptr(th), ptr(inv_grad),
             ptr(u), ptr(v), ptr(p11), ptr(p12), ptr(p21), ptr(p22),
-            b, h, w, c_lt, c_theta, ptr(err), c_thresh, ptr(partials),
-            stream))
-        if err is not None:
-            check_launch("tvl1_err_reduce", lib.tvl1_err_reduce(
-                ptr(partials), nblocks, ptr(err), ptr(active), c_thresh, b,
-                stream))
+            b, h, w, c_lt, c_theta, stream))
         check_launch("tvl1_dual", lib.tvl1_dual(
             ptr(u), ptr(v), ptr(p11), ptr(p12), ptr(p21), ptr(p22),
-            b, h, w, c_taut, ptr(active), stream))
+            b, h, w, c_taut, stream))
 
 
 def tvl1_inner_block(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
@@ -193,14 +185,14 @@ def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
                     outer_iters, inner_iters, use_median, l_t, theta, taut,
                     epsilon=0.0) -> State:
     """K1: one warp's whole outer loop (see ``tvl1_outer_loop_plain`` for
-    the semantics) on (B, H, W) float32 state. CUDA kernels on a card
-    tensor, the plain version on a CPU tensor. Counts its calls in
-    ``tvl1_outer_loop.launches``.
+    the semantics) on (B, H, W) float32 state. On a card tensor, one
+    cooperative launch of ``csrc/tvl1.cu``'s persistent kernel, which runs
+    the medians, the steps and the epsilon stop on the device and ends
+    once every pair has frozen; a refused launch raises. On a CPU tensor,
+    the plain version. Counts its calls in ``tvl1_outer_loop.launches``.
 
-    On the card the batch runs the full budget: a frozen pair's launches
-    return at once, and the host never waits for the error inside the
-    loop. Stop decisions equal the plain version's up to the order in
-    which the error sum is reduced."""
+    Stop decisions equal the plain version's up to the order in which the
+    error sum is reduced."""
     inputs = (rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22)
     if all(t.device.type == "cpu" for t in inputs):
         return tvl1_outer_loop_plain(
@@ -209,33 +201,26 @@ def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
             epsilon=epsilon)
     check_inputs("tvl1_outer_loop", inputs)
     b, h, w = u.shape
+    dev = u.device
     th, inv_grad = derived_constants(grad, l_t)
-    u, v, p11, p12, p21, p22 = (t.clone() for t in (u, v, p11, p12, p21, p22))
+    state = tuple(t.clone() for t in (u, v, p11, p12, p21, p22))
     lib = load_library()
-    err: Optional[torch.Tensor] = None
-    partials = active = None
-    nblocks = 0
-    thresh = 0.0
-    if epsilon > 0.0:
-        thresh = epsilon * epsilon * h * w
-        nblocks = lib.tvl1_num_blocks(h, w)
-        err = torch.full((b,), float("inf"), dtype=torch.float32,
-                         device=u.device)
-        active = torch.ones((b,), dtype=torch.int32, device=u.device)
-        partials = torch.empty((b * nblocks,), dtype=torch.float32,
-                               device=u.device)
-    consts = (rho_c, i1wx, i1wy, th, inv_grad)
-    with launch_context(u.device) as stream:
-        for _ in range(outer_iters):
-            if use_median:
-                u = median_filter_5x5(u, err=err, thresh=thresh)
-                v = median_filter_5x5(v, err=err, thresh=thresh)
-            _launch_steps(lib, stream, consts, (u, v, p11, p12, p21, p22),
-                          inner_iters, l_t=l_t, theta=theta, taut=taut,
-                          err=err, thresh=thresh, partials=partials,
-                          active=active, nblocks=nblocks)
+    # the other half of each pair's ping-pong, the per-tile error slots and
+    # the per-pair error
+    scratch = torch.empty((6, b, h, w), dtype=torch.float32, device=dev)
+    partials = torch.empty((b * lib.tvl1_num_tiles(h, w),),
+                           dtype=torch.float32, device=dev)
+    derr = torch.empty((b,), dtype=torch.float32, device=dev)
+    with launch_context(dev) as stream:
+        check_launch("tvl1_outer_loop", lib.tvl1_outer_loop(
+            ptr(rho_c), ptr(i1wx), ptr(i1wy), ptr(th), ptr(inv_grad),
+            *(ptr(t) for t in state), ptr(scratch), ptr(partials),
+            ptr(derr), b, h, w, outer_iters, inner_iters,
+            int(use_median), int(epsilon > 0.0), ctypes.c_float(l_t),
+            ctypes.c_float(theta), ctypes.c_float(taut),
+            ctypes.c_float(epsilon * epsilon * h * w), stream))
     tvl1_outer_loop.launches += 1
-    return u, v, p11, p12, p21, p22
+    return state
 
 
 tvl1_outer_loop.launches = 0

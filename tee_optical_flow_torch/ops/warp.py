@@ -23,7 +23,6 @@ it launches ``csrc/tvl1.cu``'s median kernel, on a CPU tensor it runs
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -388,35 +387,27 @@ def median_filter_5x5_plain(f: torch.Tensor, *,
     return torch.where((err > thresh)[:, None, None], med, f)
 
 
-def median_filter_5x5(f: torch.Tensor, *,
-                      err: Optional[torch.Tensor] = None,
-                      thresh: float = 0.0) -> torch.Tensor:
+def median_filter_5x5(f: torch.Tensor) -> torch.Tensor:
     """5x5 median of each (H, W) plane of a (B, H, W) float32 tensor.
 
     On a CUDA tensor this launches ``tvl1_median5x5`` from
-    ``csrc/tvl1.cu`` (replacing the on-chip median ``med5`` of the TPU
-    kernel ``_fused_scale_kernel``, ops/tvl1_pallas.py:248); on a CPU
-    tensor it runs ``median_filter_5x5_plain``. ``err``/``thresh`` gate
-    pairs as in the plain version. Counts its launches in
-    ``median_filter_5x5.launches``."""
-    if f.device.type == "cpu" and (err is None or err.device.type == "cpu"):
-        return median_filter_5x5_plain(f, err=err, thresh=thresh)
+    ``csrc/tvl1.cu`` (the standalone form of the on-chip median ``med5``
+    of the TPU kernel ``_fused_scale_kernel``, ops/tvl1_pallas.py:248,
+    which K1 runs inside its own kernel; the levels above K1's size rule
+    call this one); on a CPU tensor it runs ``median_filter_5x5_plain``.
+    Counts its launches in ``median_filter_5x5.launches``."""
+    if f.device.type == "cpu":
+        return median_filter_5x5_plain(f)
     if f.device.type != "cuda" or f.dtype != torch.float32 or f.ndim != 3 or not f.is_contiguous():
         raise ValueError("median_filter_5x5 takes a contiguous (B, H, W) "
                          f"float32 tensor, got {f.dtype} {tuple(f.shape)} "
                          f"on {f.device}")
-    if err is not None and (err.device != f.device
-                            or err.dtype != torch.float32
-                            or tuple(err.shape) != (f.shape[0],)):
-        raise ValueError("err must be a (B,) float32 tensor on the same "
-                         "device")
     b, h, w = f.shape
     out = torch.empty_like(f)
     lib = load_library()
     with launch_context(f.device) as stream:
         check_launch("tvl1_median5x5", lib.tvl1_median5x5(
-            ptr(f), ptr(out), b, h, w, ptr(err), ctypes.c_float(thresh),
-            stream))
+            ptr(f), ptr(out), b, h, w, stream))
     median_filter_5x5.launches += 1
     return out
 

@@ -27,6 +27,9 @@ from tee_optical_flow_torch.ops import warp as tw
 pytestmark = pytest.mark.cuda
 
 SHAPES = {"small": (2, 40, 48), "full": (4, 480, 640)}
+# K1 also at the TV-L1 path's coarsest level, a multiple of neither side
+# of its 32x16 tile
+K1_SHAPES = dict(SHAPES, level=(3, 197, 262))
 # K3: an odd shape, and the DeepFlow path's finest level (39 pairs)
 DF_SHAPES = {"small": (2, 21, 37), "full": (39, 480, 640)}
 DF_KW = dict(psi_iters=3, sor_iters=12, omega=1.6, alpha=8.0, delta=0.5,
@@ -74,10 +77,6 @@ def test_median_bit_equal(card, size):
     got = tw.median_filter_5x5(f)
     assert tw.median_filter_5x5.launches == before + 1
     assert torch.equal(got, tw.median_filter_5x5_plain(f))
-    err = torch.tensor([1.0] + [0.0] * (f.shape[0] - 1), device=card)
-    gated = tw.median_filter_5x5(f, err=err, thresh=0.5)
-    assert torch.equal(gated,
-                       tw.median_filter_5x5_plain(f, err=err, thresh=0.5))
     torch.cuda.synchronize()
 
 
@@ -94,9 +93,9 @@ def test_inner_block_bit_equal(card, size):
 
 
 @pytest.mark.parametrize("epsilon", [0.0, 0.01, 2.0])
-@pytest.mark.parametrize("size", ["small", "full"])
+@pytest.mark.parametrize("size", ["small", "full", "level"])
 def test_outer_loop_matches_plain(card, size, epsilon):
-    args = _level(SHAPES[size], card)
+    args = _level(K1_SHAPES[size], card)
     kw = dict(outer_iters=10, inner_iters=30, use_median=True,
               epsilon=epsilon, **KW)
     before = tk.tvl1_outer_loop.launches
@@ -105,6 +104,40 @@ def test_outer_loop_matches_plain(card, size, epsilon):
     ref = tk.tvl1_outer_loop_plain(*args, **kw)
     err = _max_abs(got, ref)
     assert err <= (0.0 if epsilon == 0.0 else 0.05), err
+
+
+@pytest.mark.parametrize("use_median", [True, False])
+def test_outer_loop_frozen_and_running_pairs(card, use_median):
+    """Pairs 0 and 2 are all zero, so their first step moves nothing and
+    they freeze at once; pairs 1 and 3 move by far more than the tiny
+    threshold and never freeze. No stop decision is near the threshold,
+    so the kernel is bit-equal to the plain version, and the running pairs
+    equal an epsilon-0 run. Without the median each pair's state ends in
+    the kernel's second buffer (21 steps), so the copy back is held too."""
+    args = _level((4, 40, 48), card)
+    for t in args:
+        t[0::2] = 0.0
+    kw = dict(outer_iters=3, inner_iters=7, use_median=use_median, **KW)
+    got = tk.tvl1_outer_loop(*args, epsilon=1e-6, **kw)
+    ref = tk.tvl1_outer_loop_plain(*args, epsilon=1e-6, **kw)
+    for a, c in zip(got, ref):
+        assert torch.equal(a, c)
+    running = tk.tvl1_outer_loop_plain(*args, epsilon=0.0, **kw)
+    for a, c in zip(got, running):
+        assert torch.equal(a[1::2], c[1::2])
+        assert not bool(a[0::2].any())
+    assert float((got[0][1::2] - args[4][1::2]).abs().max()) > 0.01
+
+
+def test_outer_loop_refuses_bad_inputs(card):
+    args = _level(SHAPES["small"], card)
+    kw = dict(outer_iters=1, inner_iters=1, use_median=True, **KW)
+    for bad in (args[4].double(), args[4].cpu(),
+                args[4].transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError):
+            tk.tvl1_outer_loop(*args[:4], bad, *args[5:], **kw)
+    with pytest.raises(ValueError):
+        tk.tvl1_outer_loop(*args[:4], args[4][:1], *args[5:], **kw)
 
 
 def test_wrappers_refuse_bad_inputs(card):

@@ -83,9 +83,10 @@ def test_median_5x5_bit_equal(rng):
     f[:, 4:9, 4:9] = 0.25  # ties
     ref = np.asarray(jw.median_filter_5x5(f))
     np.testing.assert_array_equal(ref, tw.median_filter_5x5(_t(f)).numpy())
-    # the gate: a frozen pair passes through, an active one is filtered
+    # the plain K1's gate: a frozen pair passes through, an active one is
+    # filtered
     err = torch.tensor([1.0, 0.0, 5.0])
-    got = tw.median_filter_5x5(_t(f), err=err, thresh=0.5).numpy()
+    got = tw.median_filter_5x5_plain(_t(f), err=err, thresh=0.5).numpy()
     np.testing.assert_array_equal(got[[0, 2]], ref[[0, 2]])
     np.testing.assert_array_equal(got[1], f[1])
 
@@ -110,7 +111,7 @@ def test_median_networks_match_jax_and_cuda_source():
 
     assert network("SORT5") == jw.SORT5_NETWORK
     assert network("COLUMN_MEDIAN_25") == jw.COLUMN_MEDIAN_25_NETWORK
-    assert "out[i] = w[14];" in src
+    assert "return w[14];" in src  # the answer wire
 
 
 def _flows(rng, shape, scale):
