@@ -18,7 +18,9 @@ arguments the TV-L1 and the DeepFlow path handed them):
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
-call). Imports nothing of JAX. Exits
+call, K3's device launches per call at each DeepFlow level). Imports
+nothing of JAX. ``k3_tuning()`` (run on its own) times K3 under builds
+with other tiles, sweeps per launch and routes. Exits
 non-zero, with no result line, when there is no CUDA device or a phase
 fails.
 
@@ -87,25 +89,69 @@ K1_SHAPES = ((CLIP_H, CLIP_W), (197, 262))
 # others
 TVL1_DEVICE_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
                        "primal_kernel", "dual_kernel")
+DEEPFLOW_DEVICE_KERNELS = ("coefs_kernel", "sweep_kernel",
+                           "resident_kernel")
 DEVICE_KERNELS = {"tvl1.cu": TVL1_DEVICE_KERNELS,
-                  "deepflow.cu": ("weights_kernel", "coefs_kernel",
-                                  "sor_half_kernel")}
+                  "deepflow.cu": DEEPFLOW_DEVICE_KERNELS}
 
 # the DeepFlow path: 5 levels x 3 fixed points, one K3 call each; K3 is
-# held against its plain version at the finest level and at 60x80
+# held against its plain version at every level (the two coarsest with
+# the matching term)
 DF_LEVELS, DF_FP_ITERS = 5, 3
-K3_SHAPES = ((CLIP_H, CLIP_W), (60, 80))
+K3_SHAPES = ((CLIP_H, CLIP_W), (240, 320), (120, 160), (60, 80), (30, 40))
 # K3's float32 operations per pixel, counted from the algorithm: per psi
 # round 28 for the smoothness weight, 102 for the data term, the
 # diffusivities and the 2x2 system (+21 with the matching term), and 30
 # per SOR iteration (each pixel updated once per red-black pair)
 OPS_DF_WEIGHTS, OPS_DF_COEFS, OPS_DF_MATCH, OPS_DF_SOR = 28, 102, 21, 30
-# bytes the K3 kernels themselves move per pixel (neighbours from cache):
-# a half sweep reads 9 planes and writes 2; per psi round the weights
-# pass reads 4 and writes 1, the coefficients pass reads 13 (16 with
-# match) and writes 6
-DF_HALF_BYTES = (9 + 2) * 4
-DF_PSI_BYTES = (4 + 1 + 13 + 6) * 4
+# K3's tiled route as csrc/deepflow.cu builds it by default: S SOR
+# iterations per sweep launch on an EW x EH extended tile (k3_tuning
+# rebuilds it with others). Levels whose pair fits in one block's shared
+# memory take the resident route instead (ops/deepflow_kernels.resident)
+K3_S, K3_TILE = 4, (96, 64)
+# k3_tuning's builds (-D overrides of those defaults): the production one,
+# the tiled route at every size, other S, and a 64x48 extended tile of 512
+# threads (two blocks per SM)
+K3_VARIANTS = (
+    {}, {"K3_RESIDENT": 0}, {"K3_S": 2}, {"K3_S": 3}, {"K3_S": 6},
+    *({"K3_EW": 64, "K3_EH": 48, "K3_THREADS": 512, "K3_S": s}
+      for s in (2, 3, 4, 6)))
+
+
+def k3_device_launches(resident, psi_iters, sor_iters, s=K3_S):
+    """Device launches of one K3 call."""
+    return 1 if resident else psi_iters * (1 + -(-sor_iters // s))
+
+
+def k3_own_bytes(b, h, w, match, psi_iters, sor_iters, resident, s=K3_S,
+                 tile=K3_TILE):
+    """Bytes the K3 kernels themselves move in one call (neighbours from
+    cache). Resident: per psi round the 10 input planes (13 with match),
+    then du/dv written once. Tiled, per psi round: the coefficients pass
+    reads 10 input planes (13 with match) and du/dv (not in the first
+    round) and writes w and 6 coefficients; each sweep launch reads du/dv
+    (not the first launch) and the 7 planes over every extended tile's
+    in-image pixels, halos included, and writes du/dv over the tiles."""
+    n_in = 13 if match else 10
+    npx = b * h * w
+    if resident:
+        return 4 * npx * (psi_iters * n_in + 2)
+    ew, eh = tile
+    tw, th = ew - 4 * s, eh - 4 * s
+    ext = sum((min(ty * th - 2 * s + eh, h) - max(ty * th - 2 * s, 0))
+              * (min(tx * tw - 2 * s + ew, w) - max(tx * tw - 2 * s, 0))
+              for ty in range(-(-h // th)) for tx in range(-(-w // tw)))
+    sweeps = -(-sor_iters // s)
+    coef_planes = psi_iters * (n_in + 7) + 2 * (psi_iters - 1)
+    sweep_planes_ext = psi_iters * sweeps * 9 - 2
+    return 4 * (npx * coef_planes + b * ext * sweep_planes_ext
+                + npx * 2 * psi_iters * sweeps)
+
+
+def is_kernel(event_name, kernel):
+    """Whether a profiler event names the kernel (a template instance
+    too)."""
+    return f"::{kernel}(" in event_name or f"::{kernel}<" in event_name
 
 
 def log(msg: str) -> None:
@@ -389,11 +435,13 @@ def record_k3(captured, calls):
 
 def phase_k3(captured, calls):
     """K3 against its plain version, bit-equal, on the arguments the
-    DeepFlow path gave it at its finest level (39x480x640, no match) and
-    its 60x80 level (with match)."""
+    DeepFlow path gave it at each of its five levels (39 pairs at 480x640
+    down to 30x40; the two coarsest with the matching term). Times each
+    with CUDA events and counts its device launches per call."""
     import torch
 
     from tee_optical_flow_torch.ops import deepflow_kernels as dk
+    from tee_optical_flow_torch.ops.cuda_lib import load_library
 
     log(f"K3 calls per level shape in the first DeepFlow run: "
         f"{ {f'{h}x{w}': c for (h, w), c in calls.items()} }")
@@ -417,20 +465,28 @@ def phase_k3(captured, calls):
         ms = cuda_ms(lambda: dk.sor_sweeps(*planes, match, **kw), 10)
         plain_ms = cuda_ms(lambda: dk.sor_sweeps_plain(*planes, match, **kw),
                            2)
+        dev = device_launches(lambda: dk.sor_sweeps(*planes, match, **kw),
+                              DEEPFLOW_DEVICE_KERNELS)
+        resident = dk.resident(load_library(), h, w)
+        want = k3_device_launches(resident, kw["psi_iters"], kw["sor_iters"])
+        assert dev == want, (tag, dev, want)
         n_in = len(planes) + (3 if match else 0)
         ops_px = kw["psi_iters"] * (
             OPS_DF_WEIGHTS + OPS_DF_COEFS + (OPS_DF_MATCH if match else 0)
             + kw["sor_iters"] * OPS_DF_SOR)
         bms, by = bound((n_in + 2) * 4 * npx, ops_px * npx)
-        own = kw["psi_iters"] * (DF_PSI_BYTES + (12 if match else 0)
-                                 + 2 * kw["sor_iters"] * DF_HALF_BYTES)
+        own = k3_own_bytes(b, h, w, bool(match), kw["psi_iters"],
+                           kw["sor_iters"], resident)
         log(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
-            f"{bms:.4f} ms ({by}); own traffic ({own} B per pixel) at "
-            f"{own * npx / ms / 1e9:.3f} TB/s")
+            f"{bms:.4f} ms ({by}), {dev} device launches per call "
+            f"({'resident' if resident else 'tiled'}); own "
+            f"traffic ({own / npx:.1f} B per pixel) at "
+            f"{own / ms / 1e9:.3f} TB/s")
         out[f"{h}x{w}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bms, bound_by=by,
                                shape=[b, h, w], match=bool(match),
-                               path_calls=calls[shape])
+                               path_calls=calls[shape],
+                               device_launches=dev)
     return out
 
 
@@ -460,26 +516,32 @@ def record_k1(captured, calls):
         tk.tvl1_outer_loop = tt.tvl1_outer_loop = inner
 
 
-def device_launches(fn, names) -> int:
+def device_launches(fn, names, traces=3) -> int:
     """Device kernels named in ``names`` that one call of fn() launches,
-    counted by torch.profiler."""
+    counted by torch.profiler: the most that any of ``traces`` traces
+    shows, as a trace may lose a kernel's event (one showed none of K1's
+    single launch on an H100) and never adds one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     mark = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a kernel of no interest on each side of the call, so that an
-        # event lost at either end of the trace is not one of fn's
-        mark.add_(1)
+    counts = []
+    for _ in range(traces):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-        mark.add_(1)
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and any(f"::{n}(" in e.name for n in names))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # kernels of no interest on each side of the call, so that an
+            # event lost at either end of the trace is not one of fn's
+            for _ in range(8):
+                mark.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            mark.add_(1)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and any(is_kernel(e.name, n) for n in names)))
+    return max(counts)
 
 
 def phase_k1(captured, calls):
@@ -614,8 +676,8 @@ def profile_clip(run_clip):
     """One more clip under torch.profiler: the device's busy share of the
     clip's wall time (kernel time over wall, one stream) and the kernels
     that take it, with each kernel source's sum. The profiler's own cost
-    inflates the wall time. Returns the launches of each csrc/tvl1.cu
-    kernel in the clip."""
+    inflates the wall time. Returns, for each kernel source, the launches
+    and device ms of each of its kernels in the clip."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -637,19 +699,22 @@ def profile_clip(run_clip):
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"  {t:9.2f} ms {c:7d}x {name[:90]}")
-    launches = {}
+    sources = {}
     for source, names in DEVICE_KERNELS.items():
-        ours = {n: (c, t) for name, (c, t) in by_name.items()
-                for n in names if f"::{n}(" in name}
+        ours = {}
+        for name, (c, t) in by_name.items():
+            for n in names:
+                if is_kernel(name, n):
+                    c0, t0 = ours.get(n, (0, 0.0))
+                    ours[n] = (c0 + c, t0 + t)
         if ours:
             log(f"  csrc/{source}'s kernels in the clip: "
                 f"{sum(t for _, t in ours.values()):.2f} ms over "
                 f"{sum(c for c, _ in ours.values())} launches ("
                 + ", ".join(f"{n} {t:.2f} ms {c}x"
                             for n, (c, t) in ours.items()) + ")")
-        if source == "tvl1.cu":
-            launches = {n: c for n, (c, _) in ours.items()}
-    return launches
+        sources[source] = ours
+    return sources
 
 
 # per path through process_video: the launches each clip must count (5
@@ -734,7 +799,8 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
             assert sorted(f.keys()) == ["RWaveTime", "echo", "flow", "otsu"]
     check_outputs(saved, n, h, w, truth, PATHS[algo]["bounds"])
     device = profile_clip(lambda: process_video(dcm, out, None, **kw))
-    assert set(device) <= set(PATHS[algo]["device"]), (algo, device)
+    assert set(device["tvl1.cu"]) <= set(PATHS[algo]["device"]), \
+        (algo, device)
 
     # the solver alone, on the same flow inputs, timed to completion
     _, arr = read_dicom_clip(dcm)
@@ -749,7 +815,7 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
     log(f"{algo} steady-state clip: {clip_s[1]:.3f} s (first run "
         f"{clip_s[0]:.3f} s); solver alone: {solver_s:.3f} s for "
         f"{images.shape[0] - 1} pairs at {h}x{w}")
-    return counts[1], clip_s[1], solver_s
+    return counts[1], clip_s[1], solver_s, device
 
 
 def phase_saliency(clip):
@@ -800,6 +866,67 @@ def cpu_wall_reference(windows=(0, 3, 7)):
         motion = np.median(np.hypot(tr[..., 0], tr[..., 1])[:, wall])
         log(f"pairs {k}-{k + 1}: median motion {motion:.3f} px, EPE median "
             f"{np.median(epe):.4f} px, p95 {np.percentile(epe, 95):.4f} px")
+
+
+def k3_tuning():
+    """K3 under each build of K3_VARIANTS at the five levels of the
+    DeepFlow path, on the arguments the path hands K3 on the smoke's clip
+    (compute_clip_flow, recorded as in the smoke): mean ms over 10 calls
+    (CUDA events), device launches per call, own-traffic rate and
+    bit-equality with the plain version. The basis of csrc/deepflow.cu's
+    S, extended tile and resident route. Run on the card with
+    python3 -c "import chip_smoke; chip_smoke.k3_tuning()"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow.pipeline import compute_clip_flow
+    from tee_optical_flow_torch.ops import cuda_lib
+    from tee_optical_flow_torch.ops import deepflow_kernels as dk
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
+
+    log(f"card: {phase_setup()[0]}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(cuda_lib.load_library, K3_VARIANTS))
+    log(f"{len(libs)} builds of the kernels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clip, _ = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    # the path's 33 frames, bucketed to 40 as process_video pads them
+    frames = np.concatenate([clip, np.repeat(clip[-1:], 7, axis=0)])
+    images = img2uint8(gray_from_clip(torch.from_numpy(frames).cuda()))
+    captured, calls = {}, {}
+    with record_k3(captured, calls):
+        compute_clip_flow(images, "deepflow", default_optical_flow_config())
+    assert set(captured) == set(K3_SHAPES), list(captured)
+    for shape in K3_SHAPES:
+        args, kw = captured[shape]
+        planes, match = args[:10], args[10] if len(args) > 10 else None
+        b, h, w = planes[0].shape
+        ref = dk.sor_sweeps_plain(*planes, match, **kw)
+        for defines, lib in zip(K3_VARIANTS, libs):
+            def run():
+                return dk.solve(lib, planes, match, **kw)
+
+            err = max_abs(run(), ref)
+            ms = cuda_ms(run, 10)
+            dev = device_launches(run, DEEPFLOW_DEVICE_KERNELS)
+            s = defines.get("K3_S", K3_S)
+            tile = (defines.get("K3_EW", K3_TILE[0]),
+                    defines.get("K3_EH", K3_TILE[1]))
+            resident = dk.resident(lib, h, w)
+            own = k3_own_bytes(b, h, w, bool(match), kw["psi_iters"],
+                               kw["sor_iters"], resident, s, tile)
+            log(f"K3 tuning ({b},{h},{w}) {'match' if match else 'no match'}"
+                f" {defines or 'production'}: {ms:.4f} ms, {dev} device "
+                f"launches per call ({'resident' if resident else 'tiled'}), "
+                f"max|kernel - plain| {err}, own traffic "
+                f"{own / (b * h * w):.1f} B per pixel at "
+                f"{own / ms / 1e9:.3f} TB/s")
+            assert err == 0.0, (shape, defines, err)
+            assert dev == k3_device_launches(resident, kw["psi_iters"],
+                                             kw["sor_iters"], s), dev
 
 
 def phase_k2_path():
@@ -865,8 +992,16 @@ def main() -> int:
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
     finest = f"{CLIP_H}x{CLIP_W}"
-    records["sor_sweeps"] = dict(k3[finest], levels={
-        k: v for k, v in k3.items() if k != finest})
+    df_device = results["deepflow"][3]["deepflow.cu"]
+    records["sor_sweeps"] = dict(
+        k3[finest], levels={k: v for k, v in k3.items() if k != finest},
+        clip_device_ms=sum(t for _, t in df_device.values()),
+        clip_device_launches=sum(c for c, _ in df_device.values()))
+    log(f"K3 per DeepFlow clip: {records['sor_sweeps']['clip_device_ms']:.2f}"
+        f" ms of device time over "
+        f"{records['sor_sweeps']['clip_device_launches']} device launches "
+        f"({df_counts['sor_sweeps']} calls); device launches per call "
+        + ", ".join(f"{k} {v['device_launches']}" for k, v in k3.items()))
     coarsest = K1_SHAPES[-1]
     records["tvl1_outer_loop"] = dict(
         k1[(K1_SHAPES[0], 0.01)], eps0=k1[(K1_SHAPES[0], 0.0)],
@@ -899,10 +1034,11 @@ def main() -> int:
             **{k: rec[k] for k in ("eps0", "shape", "path_calls", "levels",
                                    "pair_steps", "pair_medians",
                                    "device_launches", "barrier_us",
+                                   "clip_device_ms", "clip_device_launches",
                                    "true_flow")
                if k in rec},
         })
-    for algo, (_, clip_s, solver_s) in results.items():
+    for algo, (_, clip_s, solver_s, _) in results.items():
         log(f"{algo}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

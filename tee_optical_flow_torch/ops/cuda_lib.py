@@ -7,7 +7,9 @@ linked into one shared library with a plain C interface, loaded with
 ``csrc/deepflow.cu`` (K3). The library lands in ``build/kernels/`` at the
 root of the checkout (a directory git ignores), named by a hash of the
 sources and the flags, so an edited source is rebuilt and unchanged ones
-are reused.
+are reused. A variant with ``-D`` overrides of a source's compile-time
+settings (``load_library(defines)``) is built beside it under its own
+name; only measurements and tests ask for one.
 
 Parity flags: ``--fmad=false`` keeps every multiply and add separately
 rounded, as the plain PyTorch versions and the JAX reference compute them
@@ -30,7 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,15 +52,15 @@ _SIGNATURES = {
     "tvl1_dual": (_P,) * 6 + (_I, _I, _I, _F, _P),
     "tvl1_outer_loop": (_P,) * 14 + (_I,) * 7 + (_F,) * 4 + (_P,),
     "tvl1_num_tiles": (_I, _I),
-    "deepflow_weights": (_P,) * 5 + (_I, _I, _I, _F, _P),
-    "deepflow_coefs": (_P,) * 22 + (_I, _I, _I, _F, _F, _F, _P),
-    "deepflow_sor_half": (_P,) * 9 + (_I, _I, _I, _I, _F, _F, _P),
+    "deepflow_resident": (_I, _I, _P),
+    "deepflow_solve": (_P,) * 16 + (_I,) * 5 + (_F,) * 6 + (_P,),
 }
 
-_lib: Optional[ctypes.CDLL] = None
-# filled by the first load: the build's wall time (0 when reused),
-# nvcc's resource report (-Xptxas -v: registers, spills per kernel) and
-# the library's path
+# the loaded libraries, by their nvcc flags
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+# filled by the first load of the default library: the build's wall time
+# (0 when reused), nvcc's resource report (-Xptxas -v: registers, spills
+# per kernel) and the library's path
 build_info = {"seconds": None, "ptxas": "", "path": None}
 
 
@@ -73,15 +75,16 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _build() -> Path:
+def _build(flags: Tuple[str, ...]) -> Tuple[Path, float, str]:
+    """The library built with ``flags``: its path, the build's seconds (0
+    when reused) and nvcc's resource report."""
     sources = sorted(CSRC.glob("*.cu"))
-    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         key.update(src.name.encode() + src.read_bytes())
     out = BUILD_DIR / f"libtee_kernels_{key.hexdigest()[:16]}.so"
     if out.exists():
-        build_info["seconds"] = 0.0
-        return out
+        return out, 0.0, ""
     # a directory of this process's own: a concurrent build never sees
     # half a file, and the finished library is moved in atomically
     tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
@@ -89,7 +92,7 @@ def _build() -> Path:
     t0 = time.perf_counter()
     objs = [tmp / f"{src.stem}.o" for src in sources]
     procs = [subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+        [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src, obj in zip(sources, objs)]
     logs = [proc.communicate()[1] for proc in procs]
@@ -97,7 +100,7 @@ def _build() -> Path:
               in zip(sources, procs, logs) if proc.returncode != 0]
     if not failed:
         link = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp / out.name),
+            [_nvcc(), *flags, "-shared", "-o", str(tmp / out.name),
              *map(str, objs)], capture_output=True, text=True)
         if link.returncode != 0:
             failed.append(f"nvcc failed to link {out.name}:\n{link.stderr}")
@@ -105,16 +108,16 @@ def _build() -> Path:
         raise RuntimeError("\n".join(failed))
     os.replace(tmp / out.name, out)
     shutil.rmtree(tmp, ignore_errors=True)
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = "".join(logs)
-    return out
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        path = _build()
+def load_library(defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
+    """The kernel library, built on first call; with ``defines`` (name ->
+    value, passed to nvcc as -D), a variant of it."""
+    flags = NVCC_FLAGS + tuple(f"-D{k}={v}"
+                               for k, v in sorted((defines or {}).items()))
+    if flags not in _libs:
+        path, seconds, ptxas = _build(flags)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -122,9 +125,10 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.tvl1_error_string.argtypes = [ctypes.c_int]
         lib.tvl1_error_string.restype = ctypes.c_char_p
-        build_info["path"] = str(path)
-        _lib = lib
-    return _lib
+        if not defines:
+            build_info.update(seconds=seconds, ptxas=ptxas, path=str(path))
+        _libs[flags] = lib
+    return _libs[flags]
 
 
 def check_inputs(name: str, tensors) -> None:

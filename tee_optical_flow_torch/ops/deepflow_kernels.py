@@ -8,14 +8,16 @@ differences, the level's base flow and an optional matching triple.
 Plain version: ``sor_sweeps_plain``, whose body is the JAX package's XLA
 ``deepflow._sor_sweeps`` (ops/deepflow.py:206-279).
 
-On a CUDA tensor the wrapper launches the kernels of ``csrc/deepflow.cu``
-on the current stream; on a CPU tensor it runs the plain version. It never
-falls back. It counts its calls in ``sor_sweeps.launches``. The kernels'
+On a CUDA tensor the wrapper makes one call of ``deepflow_solve``
+(``csrc/deepflow.cu``), which issues every launch of the solve on the
+current stream, with a work buffer where the size rule
+(``deepflow_resident``) sends the level to the tiled route; on a CPU
+tensor it runs the plain version. It never falls
+back. It counts its calls in ``sor_sweeps.launches``. The kernels'
 design, and what bounds them, is in the source's head note.
 
 The wrapper returns new tensors (du, dv) and leaves its inputs untouched,
-as the JAX function does: the increments start at zero and are updated in
-place by the kernels.
+as the JAX function does.
 """
 
 from __future__ import annotations
@@ -120,34 +122,39 @@ def sor_sweeps(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
     check_inputs("sor_sweeps", inputs)
     if match is not None and len(match) != 3:
         raise ValueError("match must be an (um, vm, conf) triple")
-    b, h, w = u0.shape
-    du = torch.zeros_like(u0)
-    dv = torch.zeros_like(v0)
-    wgt = torch.empty_like(u0)
-    rhs1c, rhs2c, p11, p22, a12, inv_denom = torch.empty(
-        (6, b, h, w), dtype=torch.float32, device=u0.device)
-    um, vm, conf = match if match is not None else (None, None, None)
-    lib = load_library()
-    c_omega = ctypes.c_float(omega)
-    c_one_minus = ctypes.c_float(1.0 - omega)
-    with launch_context(u0.device) as stream:
-        for _ in range(psi_iters):
-            check_launch("deepflow_weights", lib.deepflow_weights(
-                ptr(u0), ptr(v0), ptr(du), ptr(dv), ptr(wgt), b, h, w,
-                ctypes.c_float(alpha), stream))
-            check_launch("deepflow_coefs", lib.deepflow_coefs(
-                *(ptr(t) for t in inputs[:10]), ptr(um), ptr(vm), ptr(conf),
-                ptr(du), ptr(dv), ptr(wgt), ptr(rhs1c), ptr(rhs2c), ptr(p11),
-                ptr(p22), ptr(a12), ptr(inv_denom), b, h, w,
-                ctypes.c_float(delta), ctypes.c_float(gamma),
-                ctypes.c_float(beta), stream))
-            for _ in range(sor_iters):
-                for color in (0, 1):  # red (y + x even), then black
-                    check_launch("deepflow_sor_half", lib.deepflow_sor_half(
-                        ptr(wgt), ptr(rhs1c), ptr(rhs2c), ptr(p11), ptr(p22),
-                        ptr(a12), ptr(inv_denom), ptr(du), ptr(dv), b, h, w,
-                        color, c_omega, c_one_minus, stream))
+    du, dv = solve(load_library(), inputs[:10], match, **kw)
     sor_sweeps.launches += 1
+    return du, dv
+
+
+def resident(lib: ctypes.CDLL, h: int, w: int) -> bool:
+    """Whether ``lib``'s K3 solves an h x w level with one resident launch
+    per call on the current card (the C entry's size rule)."""
+    flag = ctypes.c_int()
+    check_launch("deepflow_resident",
+                 lib.deepflow_resident(h, w, ctypes.byref(flag)))
+    return bool(flag.value)
+
+
+def solve(lib: ctypes.CDLL, planes, match: Match, *, psi_iters, sor_iters,
+          omega, alpha, delta, gamma, beta):
+    """One call of ``lib``'s ``deepflow_solve`` on checked card tensors
+    -> new (du, dv). ``sor_sweeps`` passes the kernel library; a
+    measurement may pass a variant of it (``cuda_lib.load_library``)."""
+    u0 = planes[8]
+    b, h, w = u0.shape
+    du = torch.empty_like(u0)
+    dv = torch.empty_like(u0)
+    with launch_context(u0.device) as stream:
+        work = None if resident(lib, h, w) else torch.empty(
+            (9, b, h, w), dtype=torch.float32, device=u0.device)
+        check_launch("deepflow_solve", lib.deepflow_solve(
+            *(ptr(t) for t in planes),
+            *(ptr(t) for t in (match or (None, None, None))),
+            ptr(du), ptr(dv), ptr(work), b, h, w, psi_iters, sor_iters,
+            ctypes.c_float(omega), ctypes.c_float(1.0 - omega),
+            ctypes.c_float(alpha), ctypes.c_float(delta),
+            ctypes.c_float(gamma), ctypes.c_float(beta), stream))
     return du, dv
 
 

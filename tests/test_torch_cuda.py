@@ -13,7 +13,8 @@ operation order with separately rounded operations (built with
 --fmad=false), so K2, K1 at epsilon=0 and the median are bit-equal. At
 epsilon > 0 the per-pair error is summed in another order than
 torch.sum, so a pair may stop one step apart: 0.05 px max-abs. K3 (the
-DeepFlow SOR solve) is bit-equal, with and without the matching term.
+DeepFlow SOR solve) is bit-equal on both of its routes (resident and
+tiled), with and without the matching term.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 from tee_optical_flow_torch.ops import deepflow_kernels as dk
 from tee_optical_flow_torch.ops import tvl1_kernels as tk
+from tee_optical_flow_torch.ops.cuda_lib import load_library
 from tee_optical_flow_torch.ops import warp as tw
 
 pytestmark = pytest.mark.cuda
@@ -30,8 +32,14 @@ SHAPES = {"small": (2, 40, 48), "full": (4, 480, 640)}
 # K1 also at the TV-L1 path's coarsest level, a multiple of neither side
 # of its 32x16 tile
 K1_SHAPES = dict(SHAPES, level=(3, 197, 262))
-# K3: an odd shape, and the DeepFlow path's finest level (39 pairs)
-DF_SHAPES = {"small": (2, 21, 37), "full": (39, 480, 640)}
+# K3 on each side of its size rule (one pair's nine planes in one block's
+# shared memory: H x ceil(W/2) <= 3,212): an odd resident shape, the
+# largest resident level of the DeepFlow path (60x80), a tiled shape just
+# above the rule with ragged last tiles, and two tiled path levels
+DF_SHAPES = {"small": (2, 21, 37), "level60": (39, 60, 80),
+             "above": (3, 77, 93), "level120": (39, 120, 160),
+             "full": (39, 480, 640)}
+DF_RESIDENT = {"small", "level60"}
 DF_KW = dict(psi_iters=3, sor_iters=12, omega=1.6, alpha=8.0, delta=0.5,
              gamma=5.0, beta=0.3)
 KW = dict(l_t=0.15 * 0.3, theta=0.3, taut=0.25 / 0.3)
@@ -168,10 +176,12 @@ def _df_level(shape, device, seed=0):
 
 
 @pytest.mark.parametrize("with_match", [False, True])
-@pytest.mark.parametrize("size", ["small", "full"])
+@pytest.mark.parametrize("size", list(DF_SHAPES))
 def test_sor_sweeps_bit_equal(card, size, with_match):
     planes, match = _df_level(DF_SHAPES[size], card)
     match = match if with_match else None
+    _, h, w = DF_SHAPES[size]
+    assert dk.resident(load_library(), h, w) == (size in DF_RESIDENT)
     before_in = [t.clone() for t in planes + list(match or ())]
     before = dk.sor_sweeps.launches
     got = dk.sor_sweeps(*planes, match, **DF_KW)
@@ -192,3 +202,26 @@ def test_sor_sweeps_refuses_bad_inputs(card):
             dk.sor_sweeps(bad, *planes[1:], None, **DF_KW)
     with pytest.raises(ValueError):
         dk.sor_sweeps(*planes, match[:2], **DF_KW)
+
+
+def test_sor_sweeps_raises_on_refused_launch(card):
+    """A build whose extended tile needs more shared memory than a block
+    may have (160x128: 738,432 B) refuses the tiled route's launch: the solve
+    raises a RuntimeError and nothing falls back. Its resident route still
+    solves a shape under the size rule, also after the refused launch,
+    which leaves no error behind for the next call. A non-contiguous match plane is
+    refused before any launch."""
+    big = load_library({"K3_EW": 160, "K3_EH": 128})
+    small, _ = _df_level(DF_SHAPES["small"], card)
+    above, match = _df_level(DF_SHAPES["above"], card)
+    ref = dk.sor_sweeps_plain(*small, None, **DF_KW)
+    assert _max_abs(dk.solve(big, small, None, **DF_KW), ref) == 0.0
+    with pytest.raises(RuntimeError, match="deepflow_solve"):
+        dk.solve(big, above, None, **DF_KW)
+    assert _max_abs(dk.solve(big, small, None, **DF_KW), ref) == 0.0
+    got = dk.sor_sweeps(*above, None, **DF_KW)
+    assert _max_abs(got, dk.sor_sweeps_plain(*above, None, **DF_KW)) == 0.0
+    bad = (match[0], match[1], match[2].transpose(1, 2).contiguous()
+           .transpose(1, 2))
+    with pytest.raises(ValueError):
+        dk.sor_sweeps(*above, bad, **DF_KW)

@@ -1,9 +1,10 @@
 """The PyTorch port's DeepFlow path against the JAX package's, on the CPU:
 the gather warp, the patch-ZNCC matcher, K3's plain version (the psi x
 red-black SOR solve) against the XLA solve and the Pallas kernel in
-interpret mode, K3's in-place decomposition emulated on the CPU, the
-fine-grained saliency map, a whole solve, ``process_video`` with DeepFlow
-on the normalised and the saliency input, and the float64 Brox oracle.
+interpret mode, K3's tiled and resident decompositions emulated on the
+CPU, the fine-grained saliency map, a whole solve, ``process_video`` with
+DeepFlow on the normalised and the saliency input, and the float64 Brox
+oracle.
 
 The whole solve and the two pipeline runs use one reduced configuration
 on (2, 64, 64) pairs, so that the JAX package compiles ``deepflow_pairs``
@@ -171,105 +172,216 @@ def test_sor_sweeps_plain_matches_jax(rng, with_match):
     assert float(got[0].abs().max()) > 0.1  # the solve moved
 
 
-def _emulate_k3(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
-                match, *, psi_iters, sor_iters, omega, alpha, delta, gamma,
-                beta):
-    """csrc/deepflow.cu's decomposition on the CPU: per psi round the
-    weights pass and the coefficients pass with clamped neighbour indices,
-    then each SOR iteration's red pixels updated in place in du/dv, then
-    the black ones, every expression in the kernel's order."""
-    b, h, w = u0.shape
-    yy = torch.arange(h).view(h, 1).expand(h, w)
-    xx = torch.arange(w).view(1, w).expand(h, w)
-    nbr = {"n": (torch.clamp_min(yy - 1, 0), xx),
-           "s": (torch.clamp_max(yy + 1, h - 1), xx),
-           "w": (yy, torch.clamp_min(xx - 1, 0)),
-           "e": (yy, torch.clamp_max(xx + 1, w - 1))}
+# csrc/deepflow.cu's tiled route, scaled down: a 16x12 extended tile and
+# S = 2 SOR iterations per sweep launch (halo 4) give 8x4 tiles, several
+# per image, with a ragged last tile and halos across both image edges
+EMU_EW, EMU_EH, EMU_S = 16, 12, 2
 
-    def at(f, k):
-        return f[:, nbr[k][0], nbr[k][1]]
 
-    def robust(x2):
-        return 1.0 / (2.0 * torch.sqrt(x2 + 1e-6))
+def _robust_emu(x2):
+    return 1.0 / (2.0 * torch.sqrt(x2 + 1e-6))
 
-    def diffusivities(wgt):
-        return [0.5 * (wgt + at(wgt, k)) for k in "nswe"]
 
-    du = torch.zeros_like(u0)
-    dv = torch.zeros_like(v0)
-    for _ in range(psi_iters):
-        # weights pass
-        ux = 0.5 * ((at(u0, "e") + at(du, "e")) - (at(u0, "w") + at(du, "w")))
-        uy = 0.5 * ((at(u0, "s") + at(du, "s")) - (at(u0, "n") + at(du, "n")))
-        vx = 0.5 * ((at(v0, "e") + at(dv, "e")) - (at(v0, "w") + at(dv, "w")))
-        vy = 0.5 * ((at(v0, "s") + at(dv, "s")) - (at(v0, "n") + at(dv, "n")))
-        wgt = robust(ux * ux + uy * uy + vx * vx + vy * vy) * alpha
-        # coefficients pass
-        r_int = it + i1wx * du + i1wy * dv
-        r_gx = itx + i1wxx * du + i1wxy * dv
-        r_gy = ity + i1wxy * du + i1wyy * dv
-        psi_d = robust(r_int * r_int) * delta
-        psi_g = robust(r_gx * r_gx + r_gy * r_gy) * gamma
-        a11 = psi_d * i1wx * i1wx + psi_g * (i1wxx * i1wxx + i1wxy * i1wxy)
-        a12 = psi_d * i1wx * i1wy + psi_g * (i1wxx * i1wxy + i1wxy * i1wyy)
-        a22 = psi_d * i1wy * i1wy + psi_g * (i1wxy * i1wxy + i1wyy * i1wyy)
-        b1 = -(psi_d * i1wx * it + psi_g * (i1wxx * itx + i1wxy * ity))
-        b2 = -(psi_d * i1wy * it + psi_g * (i1wxy * itx + i1wyy * ity))
-        if match is not None:
-            um, vm, conf = match
-            ru = u0 + du - um
-            rv = v0 + dv - vm
-            a_m = beta * conf * robust(ru * ru + rv * rv)
-            a11 = a11 + a_m
-            a22 = a22 + a_m
-            b1 = b1 + a_m * (um - u0)
-            b2 = b2 + a_m * (vm - v0)
-        wn, ws, ww, we = diffusivities(wgt)
-        wsum = wn + ws + ww + we
-        su0 = (wn * at(u0, "n") + ws * at(u0, "s") + ww * at(u0, "w")
-               + we * at(u0, "e") - wsum * u0)
-        sv0 = (wn * at(v0, "n") + ws * at(v0, "s") + ww * at(v0, "w")
-               + we * at(v0, "e") - wsum * v0)
-        p11 = a11 + wsum
-        p22 = a22 + wsum
-        denom = p11 * p22 - a12 * a12
-        inv_denom = 1.0 / torch.where(denom.abs() > 1e-6, denom, 1e-6)
-        rhs1c = b1 + su0
-        rhs2c = b2 + sv0
-        # half sweeps: one colour's pixels, du/dv in place
-        for _ in range(sor_iters):
-            for color in (0, 1):
-                sel = ((yy + xx) % 2) == color
-                ys, xs = yy[sel], xx[sel]
-                wn, ws, ww, we = diffusivities(wgt)
-                dun = (wn * at(du, "n") + ws * at(du, "s") + ww * at(du, "w")
-                       + we * at(du, "e"))
-                dvn = (wn * at(dv, "n") + ws * at(dv, "s") + ww * at(dv, "w")
-                       + we * at(dv, "e"))
-                rhs1 = rhs1c + dun
-                rhs2 = rhs2c + dvn
-                du_star = (p22 * rhs1 - a12 * rhs2) * inv_denom
-                dv_star = (p11 * rhs2 - a12 * rhs1) * inv_denom
-                new_du = (1.0 - omega) * du + omega * du_star
-                new_dv = (1.0 - omega) * dv + omega * dv_star
-                du[:, ys, xs] = new_du[:, ys, xs]
-                dv[:, ys, xs] = new_dv[:, ys, xs]
+def _nbrs(f, gy, gx, h, w):
+    """(N, S, W, E) neighbours of every position of a (B, EH, EW) region
+    whose rows and columns lie at image coordinates gy, gx: the next
+    position in the region, or the pixel itself at the image edge (the
+    region's own rim reads itself; the kernels never update it)."""
+    eh, ew = f.shape[1:]
+    ly = torch.arange(eh)
+    lx = torch.arange(ew)
+    gy, gx = gy.view(eh, 1), gx.view(1, ew)
+    n = torch.where(gy > 0, f[:, torch.clamp_min(ly - 1, 0)], f)
+    s = torch.where(gy < h - 1, f[:, torch.clamp_max(ly + 1, eh - 1)], f)
+    w_ = torch.where(gx > 0, f[:, :, torch.clamp_min(lx - 1, 0)], f)
+    e = torch.where(gx < w - 1, f[:, :, torch.clamp_max(lx + 1, ew - 1)], f)
+    return n, s, w_, e
+
+
+def _emu_coefs(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0, match,
+               du, dv, *, alpha, delta, gamma, beta):
+    """The fused weights + coefficients pass (coefs_kernel, and the first
+    two phases of resident_kernel's psi round) -> (w, rhs1c, rhs2c, p11,
+    p22, a12, inv_denom), every expression in the kernels' order."""
+    h, w = u0.shape[1:]
+    gy, gx = torch.arange(h), torch.arange(w)
+    un, us, uw, ue = _nbrs(u0 + du, gy, gx, h, w)
+    vn, vs, vw, ve = _nbrs(v0 + dv, gy, gx, h, w)
+    ux, uy = 0.5 * (ue - uw), 0.5 * (us - un)
+    vx, vy = 0.5 * (ve - vw), 0.5 * (vs - vn)
+    wgt = _robust_emu(ux * ux + uy * uy + vx * vx + vy * vy) * alpha
+    r_int = it + i1wx * du + i1wy * dv
+    r_gx = itx + i1wxx * du + i1wxy * dv
+    r_gy = ity + i1wxy * du + i1wyy * dv
+    psi_d = _robust_emu(r_int * r_int) * delta
+    psi_g = _robust_emu(r_gx * r_gx + r_gy * r_gy) * gamma
+    a11 = psi_d * i1wx * i1wx + psi_g * (i1wxx * i1wxx + i1wxy * i1wxy)
+    a12 = psi_d * i1wx * i1wy + psi_g * (i1wxx * i1wxy + i1wxy * i1wyy)
+    a22 = psi_d * i1wy * i1wy + psi_g * (i1wxy * i1wxy + i1wyy * i1wyy)
+    b1 = -(psi_d * i1wx * it + psi_g * (i1wxx * itx + i1wxy * ity))
+    b2 = -(psi_d * i1wy * it + psi_g * (i1wxy * itx + i1wyy * ity))
+    if match is not None:
+        um, vm, conf = match
+        ru = u0 + du - um
+        rv = v0 + dv - vm
+        a_m = beta * conf * _robust_emu(ru * ru + rv * rv)
+        a11 = a11 + a_m
+        a22 = a22 + a_m
+        b1 = b1 + a_m * (um - u0)
+        b2 = b2 + a_m * (vm - v0)
+    wn, ws, ww, we = (0.5 * (wgt + x) for x in _nbrs(wgt, gy, gx, h, w))
+    wsum = wn + ws + ww + we
+    un, us, uw, ue = _nbrs(u0, gy, gx, h, w)
+    vn, vs, vw, ve = _nbrs(v0, gy, gx, h, w)
+    su0 = wn * un + ws * us + ww * uw + we * ue - wsum * u0
+    sv0 = wn * vn + ws * vs + ww * vw + we * ve - wsum * v0
+    p11 = a11 + wsum
+    p22 = a22 + wsum
+    denom = p11 * p22 - a12 * a12
+    inv_denom = 1.0 / torch.where(denom.abs() > 1e-6, denom, 1e-6)
+    return wgt, b1 + su0, b2 + sv0, p11, p22, a12, inv_denom
+
+
+def _emu_half_sweeps(du, dv, coefs, gy, gx, h, w, n_half, omega):
+    """n_half red-black half sweeps (red first), in place, on a region at
+    image rows gy and columns gx (sor_px): half sweep j updates the pixels
+    of its colour inside the image and at least j inside the region's rim
+    (none of the rim when the region is the whole image)."""
+    wgt, rhs1c, rhs2c, p11, p22, a12, inv_denom = coefs
+    eh, ew = du.shape[1:]
+    ly = torch.arange(eh).view(eh, 1)
+    lx = torch.arange(ew).view(1, ew)
+    gyv, gxv = gy.view(eh, 1), gx.view(1, ew)
+    inside = (gyv >= 0) & (gyv < h) & (gxv >= 0) & (gxv < w)
+    colour = (gyv + gxv) % 2
+    whole = eh == h and ew == w
+    wn, ws, ww, we = (0.5 * (wgt + x) for x in _nbrs(wgt, gy, gx, h, w))
+    for j in range(1, n_half + 1):
+        sel = inside & (colour == (j - 1) % 2)
+        if not whole:
+            sel = sel & (ly >= j) & (ly < eh - j) & (lx >= j) & (lx < ew - j)
+        dn, ds_, dw, de = _nbrs(du, gy, gx, h, w)
+        dun = wn * dn + ws * ds_ + ww * dw + we * de
+        dn, ds_, dw, de = _nbrs(dv, gy, gx, h, w)
+        dvn = wn * dn + ws * ds_ + ww * dw + we * de
+        rhs1 = rhs1c + dun
+        rhs2 = rhs2c + dvn
+        du_star = (p22 * rhs1 - a12 * rhs2) * inv_denom
+        dv_star = (p11 * rhs2 - a12 * rhs1) * inv_denom
+        du = torch.where(sel, (1.0 - omega) * du + omega * du_star, du)
+        dv = torch.where(sel, (1.0 - omega) * dv + omega * dv_star, dv)
     return du, dv
 
 
-@pytest.mark.parametrize("with_match", [False, True])
-def test_kernel_decomposition_is_bit_equal(rng, with_match):
-    """K3's in-place red-black decomposition equals the plain version bit
-    for bit (tolerance 0) on 2x9x14: every border pixel of both colours
-    reads itself as its clamped neighbour."""
-    i0, i1w, derivs, flow, match = _sor_inputs(rng, b=2, h=9, w=14)
+def _emu_sweep_launch(src, dst, coefs, n_half, omega):
+    """One sweep_kernel launch: every extended tile loads du/dv from src
+    and the coefficients, runs n_half half sweeps on its own copy and
+    writes its tile into dst. With src is dst (no ping-pong) a tile's halo
+    holds the tiles written before it."""
+    _, h, w = src[0].shape
+    r = 2 * EMU_S
+    tw, th = EMU_EW - 2 * r, EMU_EH - 2 * r
+    for ty in range(-(-h // th)):
+        for tx in range(-(-w // tw)):
+            gy = torch.arange(EMU_EH) + ty * th - r
+            gx = torch.arange(EMU_EW) + tx * tw - r
+            cy, cx = gy.clamp(0, h - 1), gx.clamp(0, w - 1)
+
+            def load(f):
+                return f[:, cy][:, :, cx]
+
+            du, dv = _emu_half_sweeps(load(src[0]), load(src[1]),
+                                      [load(c) for c in coefs], gy, gx, h,
+                                      w, n_half, omega)
+            ys = slice(r, r + min(th, h - ty * th))
+            xs = slice(r, r + min(tw, w - tx * tw))
+            oy, ox = ty * th, tx * tw
+            dst[0][:, oy:oy + th, ox:ox + tw] = du[:, ys, xs]
+            dst[1][:, oy:oy + th, ox:ox + tw] = dv[:, ys, xs]
+
+
+def _emulate_k3(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
+                match, *, route, psi_iters, sor_iters, omega, alpha, delta,
+                gamma, beta):
+    """csrc/deepflow.cu's decomposition on the CPU. ``route`` "resident":
+    resident_kernel, per psi round the coefficients of the whole pair,
+    then 2 x sor_iters half sweeps in place on it. "tiled": per psi round
+    the coefficients pass, then sweep launches of EMU_S SOR iterations
+    (the last runs the remainder) on extended tiles, du/dv ping-ponging
+    between two buffers. "no_pingpong": the tiled route writing its tiles
+    into the buffer it reads."""
+    planes = (i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0)
+    kw = dict(alpha=alpha, delta=delta, gamma=gamma, beta=beta)
+    b, h, w = u0.shape
+    zeros = (torch.zeros_like(u0), torch.zeros_like(v0))
+    if route == "resident":
+        du, dv = zeros
+        gy, gx = torch.arange(h), torch.arange(w)
+        for _ in range(psi_iters):
+            coefs = _emu_coefs(*planes, match, du, dv, **kw)
+            du, dv = _emu_half_sweeps(du, dv, coefs, gy, gx, h, w,
+                                      2 * sor_iters, omega)
+        return du, dv
+    launches = psi_iters * -(-sor_iters // EMU_S)
+    bufs = [(torch.empty_like(u0), torch.empty_like(v0)),
+            (torch.empty_like(u0), torch.empty_like(v0))]
+    cur = launches % 2 if route == "tiled" else 0
+    src = zeros  # the first psi round reads no du/dv
+    if route == "no_pingpong":
+        bufs[0] = (zeros[0].clone(), zeros[1].clone())
+        src = bufs[0]
+    for _ in range(psi_iters):
+        coefs = _emu_coefs(*planes, match, *src, **kw)
+        for done in range(0, sor_iters, EMU_S):
+            dst = bufs[cur ^ 1] if route == "tiled" else bufs[0]
+            _emu_sweep_launch(src, dst, coefs,
+                              2 * min(EMU_S, sor_iters - done), omega)
+            src = dst
+            cur ^= 1
+    assert route != "tiled" or src is bufs[0]  # the last launch wrote du/dv
+    return src
+
+
+@pytest.mark.parametrize("with_match,shape,routes", [
+    pytest.param(False, (2, 9, 14), ("tiled", "resident"), id="False"),
+    pytest.param(True, (2, 9, 14), ("tiled", "resident"), id="True"),
+    pytest.param(False, (2, 21, 37), ("tiled",), id="tiled-21x37"),
+    pytest.param(True, (2, 21, 37), ("tiled",), id="tiled-21x37-match"),
+    pytest.param(False, (2, 21, 37), ("resident",), id="resident-21x37"),
+    pytest.param(True, (2, 21, 37), ("resident",),
+                 id="resident-21x37-match"),
+])
+def test_kernel_decomposition_is_bit_equal(rng, with_match, shape, routes):
+    """K3's decomposition (csrc/deepflow.cu) equals the plain version bit
+    for bit (tolerance 0): the fused coefficients pass, and either the
+    resident route (the whole pair in place) or the tiled route at scaled
+    down sizes (8x4 tiles with halos of 4 recomputed per tile, 2 SOR
+    iterations per launch with a 1-iteration remainder, du/dv ping-pong).
+    On 2x9x14 and 2x21x37 every border pixel of both colours reads itself
+    as its clamped neighbour, and the last tiles of a row and a column are
+    ragged."""
+    i0, i1w, derivs, flow, match = _sor_inputs(rng, *shape)
     args = _kernel_args(i0, i1w, derivs, flow)
     match = tuple(_t(a) for a in match) if with_match else None
-    kw = dict(psi_iters=3, sor_iters=4, beta=0.3, **SOLVE)
+    kw = dict(psi_iters=3, sor_iters=5, beta=0.3, **SOLVE)
     ref = tk.sor_sweeps_plain(*args, match, **kw)
-    got = _emulate_k3(*args, match, **kw)
-    for a, c in zip(ref, got):
-        assert torch.equal(a, c), float((a - c).abs().max())
+    for route in routes:
+        got = _emulate_k3(*args, match, route=route, **kw)
+        for a, c in zip(ref, got):
+            assert torch.equal(a, c), (route, float((a - c).abs().max()))
+
+
+def test_kernel_decomposition_needs_the_pingpong(rng):
+    """The tiled route writing its tiles in place, into the buffer the
+    other tiles read their halos from, is not the plain version: the
+    ping-pong is what keeps it exact."""
+    i0, i1w, derivs, flow, _ = _sor_inputs(rng, 2, 21, 37)
+    args = _kernel_args(i0, i1w, derivs, flow)
+    kw = dict(psi_iters=3, sor_iters=5, beta=0.3, **SOLVE)
+    ref = tk.sor_sweeps_plain(*args, None, **kw)
+    got = _emulate_k3(*args, None, route="no_pingpong", **kw)
+    assert not torch.equal(ref[0], got[0])
+    assert float((ref[0] - got[0]).abs().max()) > 1e-4
 
 
 def test_fine_grained_saliency_matches_jax(rng):
