@@ -13,16 +13,20 @@ arguments the TV-L1 and the DeepFlow path handed them):
     through process_video(mode="otsu", OF_algo="TVL1", no_saliency=True);
   * DeepFlow (BASELINE config 2): the same DICOM through
     process_video(mode="otsu", OF_algo="deepflow", no_saliency=True);
-  * the fine-grained saliency map of the clip, card against CPU;
-  * K2's path: a 600x800 clip through compute_clip_flow.
+  * the K2 path: a 33-frame 600x800 synthetic echo DICOM through the
+    same TV-L1 call; its finest level (608x800 after bucketing) is above
+    K1's size rule and runs the block loop (K2's steps with the median
+    fused in, inside the two-quiet-blocks stop), held against its plain
+    version on the arguments the path handed it;
+  * the fine-grained saliency map of the clip, card against CPU.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
-call, K3's device launches per call at each DeepFlow level). Imports
-nothing of JAX. ``k3_tuning()`` (run on its own) times K3 under builds
-with other tiles, sweeps per launch and routes. Exits
-non-zero, with no result line, when there is no CUDA device or a phase
-fails.
+call, the block loop's and K3's device launches per call). Imports
+nothing of JAX. ``k3_tuning()`` and ``k2_tuning()`` (run on their own)
+time K3 and the block loop under builds with other tiles and steps per
+launch. Exits non-zero, with no result line, when there is no CUDA
+device or a phase fails.
 
 Output: progress lines; then, before the last line, the card's name and
 power limit (nvidia-smi) and one JSON line {"kernels": [...]} with each
@@ -49,7 +53,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 CLIP_FRAMES, CLIP_H, CLIP_W = 33, 480, 640
-K2_H, K2_W = 600, 800
+# the K2 path's clip: 600x800 frames bucket to 608x800, whose finest level
+# is above K1's size rule (ops/tvl1.per_iteration_stop)
+K2_FRAMES, K2_H, K2_W = 33, 600, 800
+K2_SHAPE = (608, 800)
 FPS, SPACING_CM = 30, 0.05
 # the clip's radial contraction c_k = A sin(2 pi k / period): a 16-frame
 # cardiac cycle, up to ~2.2 px of wall motion per frame at 480x640
@@ -61,11 +68,9 @@ MAIN_PAIRS = 39
 # 28 float ops in the primal and 28 in the dual (+5 for the epsilon
 # error), a 5x5 median 9 + 66 compare-exchanges of 2 ops each per plane
 OPS_STEP, OPS_ERR, OPS_MEDIAN_PLANE = 56, 5, 150
-# bytes a step of csrc/tvl1.cu moves per pixel (neighbours and halos from
-# cache): K1's fused step reads 11 planes and writes 6; K2's two launches
-# read 11 and write 2 (primal), then read 6 and write 4 (dual)
+# bytes a step of K1 moves per pixel (neighbours and halos from cache): its
+# fused step reads 11 planes and writes 6
 K1_STEP_BYTES = (11 + 6) * 4
-K2_STEP_BYTES = (11 + 2 + 6 + 4) * 4
 # and a median of u and v: each plane read once and written once
 MEDIAN_BYTES = 2 * 2 * 4
 
@@ -88,7 +93,7 @@ K1_SHAPES = ((CLIP_H, CLIP_W), (197, 262))
 # K1 call must launch the first of csrc/tvl1.cu's once and none of the
 # others
 TVL1_DEVICE_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
-                       "primal_kernel", "dual_kernel")
+                       "block_sweep_kernel", "block_end_kernel")
 DEEPFLOW_DEVICE_KERNELS = ("coefs_kernel", "sweep_kernel",
                            "resident_kernel")
 DEVICE_KERNELS = {"tvl1.cu": TVL1_DEVICE_KERNELS,
@@ -109,6 +114,21 @@ OPS_DF_WEIGHTS, OPS_DF_COEFS, OPS_DF_MATCH, OPS_DF_SOR = 28, 102, 21, 30
 # rebuilds it with others). Levels whose pair fits in one block's shared
 # memory take the resident route instead (ops/deepflow_kernels.resident)
 K3_S, K3_TILE = 4, (96, 64)
+# the block loop as csrc/tvl1.cu builds it by default: at most S steps per
+# sweep launch on an EW x EH extended tile (the tile and a halo of S), 512
+# threads, two blocks per SM; k2_tuning rebuilds it with others
+K2_S, K2_TILE = 5, (64, 40)
+# k2_tuning's builds: the production one, other S, 1024 threads on the
+# same tile, and one 1024-thread block per SM on larger tiles
+K2_VARIANTS = (
+    {}, {"K2_S": 4}, {"K2_S": 6}, {"K2_THREADS": 1024},
+    {"K2_EW": 128, "K2_EH": 40, "K2_THREADS": 1024},
+    {"K2_EW": 96, "K2_EH": 52, "K2_THREADS": 1024},
+    {"K2_EW": 80, "K2_EH": 64, "K2_THREADS": 1024})
+# a pair whose block delta came within this share of the threshold may
+# freeze a block earlier or later on the card: the kernel sums the delta
+# in another order than torch.sum
+K2_NEAR = 1e-4
 # k3_tuning's builds (-D overrides of those defaults): the production one,
 # the tiled route at every size, other S, and a 64x48 extended tile of 512
 # threads (two blocks per SM)
@@ -148,14 +168,51 @@ def k3_own_bytes(b, h, w, match, psi_iters, sor_iters, resident, s=K3_S,
                 + npx * 2 * psi_iters * sweeps)
 
 
+def k2_device_launches(lib, outer_iters, inner_iters, epsilon):
+    """Device launches of one block-loop call: per block the sweep
+    launches of ``lib`` (tvl1_block_sweeps) and, with the stop, the
+    block-end launch; frozen pairs' launches do no work but still count."""
+    return outer_iters * (lib.tvl1_block_sweeps(inner_iters)
+                          + (1 if epsilon > 0 else 0))
+
+
+def k2_own_bytes(h, w, inner_iters, sweeps, use_median=True, s=K2_S,
+                 tile=K2_TILE):
+    """Bytes the block loop's kernels move per pair and block (neighbours
+    and halos from cache). Each sweep launch loads the four constants, the
+    dual field and the flow over every extended tile's in-image pixels and
+    writes the six state planes over the image; with the median the first
+    loads the flow over the tiles and two more pixels (the median's
+    window) and writes the post-median flow, which the last reads back
+    for the block delta."""
+    ew, eh = tile
+    tw, th = ew - 2 * s, eh - 2 * s
+
+    def area(pad):
+        return sum((min(ty * th - s - pad + eh + 2 * pad, h)
+                    - max(ty * th - s - pad, 0))
+                   * (min(tx * tw - s - pad + ew + 2 * pad, w)
+                      - max(tx * tw - s - pad, 0))
+                   for ty in range(-(-h // th)) for tx in range(-(-w // tw)))
+
+    ext, npx = area(0), h * w
+    planes = sweeps * (10 * ext + 6 * npx)
+    if use_median:
+        planes += 2 * (area(2) - ext) + 4 * npx
+    return 4 * planes
+
+
 def is_kernel(event_name, kernel):
     """Whether a profiler event names the kernel (a template instance
     too)."""
     return f"::{kernel}(" in event_name or f"::{kernel}<" in event_name
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def echo_clip(n: int, h: int, w: int, seed: int = 0):
@@ -306,15 +363,13 @@ def phase_setup():
 
 
 def phase_kernels(clip, truth):
-    """Each kernel's wrapper against its plain version on the same card
-    tensors, at the shapes its path gives it: K1 at the main path's finest
-    level (here on inputs built from the true flow; phase_k1 holds it on
-    the path's own arguments), K2 and the standalone median at the K2
-    path's finest level."""
+    """K1 against its plain version at the main path's finest level, on
+    inputs built from the true flow (phase_k1 holds it on the path's own
+    arguments, phase_k2 the block loop, K2 and the median on the K2
+    path's)."""
     import torch
 
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
-    from tee_optical_flow_torch.ops import warp as tw
 
     dev = torch.device("cuda")
     lt, theta, taut = 0.15 * 0.3, 0.3, 0.25 / 0.3
@@ -361,46 +416,6 @@ def phase_kernels(clip, truth):
                        bound_ms=bms, bound_by=by)
     records["tvl1_outer_loop"] = dict(k1[0.01], eps0=k1[0.0])
 
-    # K2: one 30-iteration block at the K2 path's finest level (608x800,
-    # the 2 pairs of its 3-frame clip)
-    k2_clip, k2_truth = echo_clip(3, 608, 800, seed=1)
-    args2 = level_inputs(k2_clip, k2_truth, dev)
-    b2, h2, w2 = args2[0].shape
-    npx2 = b2 * h2 * w2
-    kw2 = dict(n_iters=30, l_t=lt, theta=theta, taut=taut)
-    got = tk.tvl1_inner_block(*args2, **kw2)
-    ref = tk.tvl1_inner_block_plain(*args2, **kw2)
-    err = max_abs(got, ref)
-    log(f"K2 tvl1_inner_block ({b2},{h2},{w2}) 30 steps: max|kernel - "
-        f"plain| = {err} (tolerance 0: bit-equal)")
-    assert err == 0.0, err
-    ms = cuda_ms(lambda: tk.tvl1_inner_block(*args2, **kw2), 10)
-    plain_ms = cuda_ms(lambda: tk.tvl1_inner_block_plain(*args2, **kw2), 3)
-    bms, by = bound(16 * 4 * npx2, 30 * OPS_STEP * npx2)
-    log(f"K2: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, bound "
-        f"{bms:.4f} ms ({by}); own traffic at "
-        f"{30 * K2_STEP_BYTES * npx2 / ms / 1e9:.3f} TB/s")
-    records["tvl1_inner_block"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=bms,
-                                       bound_by=by)
-
-    # the standalone median, which the K2 levels call between blocks:
-    # bit-equal
-    u = args2[4]
-    got = tw.median_filter_5x5(u)
-    ref = tw.median_filter_5x5_plain(u)
-    err = float((got - ref).abs().max())
-    log(f"median 5x5 ({b2},{h2},{w2}): max|kernel - plain| = {err} "
-        f"(tolerance 0: bit-equal)")
-    assert torch.equal(got, ref), err
-    ms = cuda_ms(lambda: tw.median_filter_5x5(u), 20)
-    plain_ms = cuda_ms(lambda: tw.median_filter_5x5_plain(u), 5)
-    bms, by = bound(2 * 4 * npx2, OPS_MEDIAN_PLANE * npx2)
-    log(f"median: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-        f"{bms:.4f} ms ({by})")
-    records["median_filter_5x5"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bms,
-                                        bound_by=by, shape=[b2, h2, w2])
     return records
 
 
@@ -491,36 +506,44 @@ def phase_k3(captured, calls):
 
 
 @contextlib.contextmanager
-def record_k1(captured, calls):
-    """Wrap the K1 wrapper that _tvl1_scale calls, as record_k3 wraps K3:
-    count its calls per level shape in ``calls`` and keep, in
-    ``captured``, a copy of the arguments and keywords of the first call
-    at each shape of K1_SHAPES; restore it on exit."""
+def record_tvl1(name, shapes, captured, calls, every=False):
+    """Wrap the TV-L1 loop wrapper ``name`` that _tvl1_scale calls (K1's
+    tvl1_outer_loop or the block loop), as record_k3 wraps K3: count its
+    calls per level shape in ``calls`` and keep, in ``captured``, a copy
+    of the arguments and keywords of the first call at each of ``shapes``
+    (with ``every``, a list of every call's); restore it on exit."""
     from tee_optical_flow_torch.ops import tvl1 as tt
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
 
-    inner = tk.tvl1_outer_loop
+    inner = getattr(tk, name)
 
     def recording(*args, **kw):
         shape = tuple(args[0].shape[1:])
         calls[shape] = calls.get(shape, 0) + 1
-        if shape in K1_SHAPES and shape not in captured:
-            captured[shape] = ([a.clone() for a in args], dict(kw))
+        if shape in shapes:
+            call = ([a.clone() for a in args], dict(kw))
+            if every:
+                captured.setdefault(shape, []).append(call)
+            elif shape not in captured:
+                captured[shape] = call
         return inner(*args, **kw)
 
     recording.__dict__ = inner.__dict__
-    tk.tvl1_outer_loop = tt.tvl1_outer_loop = recording
+    setattr(tk, name, recording)
+    setattr(tt, name, recording)
     try:
         yield
     finally:
-        tk.tvl1_outer_loop = tt.tvl1_outer_loop = inner
+        setattr(tk, name, inner)
+        setattr(tt, name, inner)
 
 
-def device_launches(fn, names, traces=3) -> int:
+def device_launches(fn, names, traces=5) -> int:
     """Device kernels named in ``names`` that one call of fn() launches,
     counted by torch.profiler: the most that any of ``traces`` traces
     shows, as a trace may lose a kernel's event (one showed none of K1's
-    single launch on an H100) and never adds one."""
+    single launch on an H100, three in a row 11 of K3's 12) and never
+    adds one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -623,6 +646,7 @@ def reset_counts():
     from tee_optical_flow_torch.ops import warp as tw
 
     tk.tvl1_outer_loop.launches = 0
+    tk.tvl1_block_loop.launches = 0
     tk.tvl1_inner_block.launches = 0
     tw.median_filter_5x5.launches = 0
     dk.sor_sweeps.launches = 0
@@ -634,6 +658,7 @@ def read_counts():
     from tee_optical_flow_torch.ops import warp as tw
 
     return {"tvl1_outer_loop": tk.tvl1_outer_loop.launches,
+            "tvl1_block_loop": tk.tvl1_block_loop.launches,
             "tvl1_inner_block": tk.tvl1_inner_block.launches,
             "median_filter_5x5": tw.median_filter_5x5.launches,
             "sor_sweeps": dk.sor_sweeps.launches}
@@ -677,12 +702,14 @@ def profile_clip(run_clip):
     clip's wall time (kernel time over wall, one stream) and the kernels
     that take it, with each kernel source's sum. The profiler's own cost
     inflates the wall time. Returns, for each kernel source, the launches
-    and device ms of each of its kernels in the clip."""
+    and device ms of each of its kernels in the clip: a lower bound, as a
+    trace may lose events (one of a 600x800 clip's, device activity only,
+    held 308 of its 370 csrc/tvl1.cu launches). Device activity only: the
+    host's events are not read, and collecting them took 30-40 s a clip."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_clip()
@@ -717,28 +744,37 @@ def profile_clip(run_clip):
     return sources
 
 
-# per path through process_video: the launches each clip must count (5
-# levels x 5 warps of K1, each one device launch with the medians inside,
-# no level of 480x640 above the K2 bound; DeepFlow's 5 levels x 3 fixed
-# points of K3), the only csrc/tvl1.cu kernels its profiled clip may show,
-# and the wall EPE bounds
+# per path through process_video: its flow algorithm, the launches each
+# clip must count, the only csrc/tvl1.cu kernels its profiled clip may
+# show, and the wall EPE bounds. TV-L1 at 480x640: 5 levels x 5 warps of
+# K1, each one device launch with the medians inside. DeepFlow: 5 levels x
+# 3 fixed points of K3. TV-L1 at 600x800: the finest level's 5 warps take
+# the block loop (median fused in), the 4 coarser levels K1; the 480x640
+# TV-L1 bounds hold there too (the reading is printed)
+_NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
+         "median_filter_5x5": 0, "sor_sweeps": 0}
 PATHS = {
-    "TVL1": dict(counts={"tvl1_outer_loop": TV_LEVELS * TV_WARPS,
-                         "tvl1_inner_block": 0, "median_filter_5x5": 0,
-                         "sor_sweeps": 0},
+    "TVL1": dict(algo="TVL1",
+                 counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
                  device={"outer_loop_kernel"},
                  bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
-    "deepflow": dict(counts={"tvl1_outer_loop": 0, "tvl1_inner_block": 0,
-                             "median_filter_5x5": 0,
-                             "sor_sweeps": DF_LEVELS * DF_FP_ITERS},
+    "deepflow": dict(algo="deepflow",
+                     counts=dict(_NONE, sor_sweeps=DF_LEVELS * DF_FP_ITERS),
                      device=set(),
                      bounds=(DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX)),
+    "TVL1 600x800": dict(
+        algo="TVL1",
+        counts=dict(_NONE, tvl1_outer_loop=(TV_LEVELS - 1) * TV_WARPS,
+                    tvl1_block_loop=TV_WARPS),
+        device={"outer_loop_kernel", "block_sweep_kernel",
+                "block_end_kernel"},
+        bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
 }
 
 
-def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
+def phase_path(name, dcm, clip, truth, has_h5py, workdir,
                first_run=contextlib.nullcontext):
-    """One path through process_video, twice (the first inside
+    """One path of PATHS through process_video, twice (the first inside
     ``first_run()``); the counts of each run, the outputs' checks, a
     profiled clip and the solver alone."""
     import torch
@@ -752,9 +788,11 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
     from tee_optical_flow_torch.utils import get_stage_report
 
     n, h, w = clip.shape
+    path = PATHS[name]
+    algo = path["algo"]
     log(f"--- path: process_video(mode='otsu', OF_algo={algo!r}, "
         f"no_saliency=True) on {n}x{h}x{w}")
-    out = os.path.join(workdir, f"echo_synthetic_{algo}.hdf5")
+    out = os.path.join(workdir, f"echo_synthetic_{algo}_{h}x{w}.hdf5")
     cfg = default_optical_flow_config()
     saved = {}
 
@@ -786,7 +824,7 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
         log("  stages (host clock, s): " + ", ".join(
             f"{k} {v['total_s']:.3f}" for k, v in get_stage_report().items()))
     for c in counts:
-        assert c == PATHS[algo]["counts"], (algo, c)
+        assert c == path["counts"], (name, c)
     if has_h5py:
         import h5py
 
@@ -797,10 +835,9 @@ def phase_path(algo, dcm, clip, truth, has_h5py, workdir,
                                 ("nframes", "mode", "frame_rate",
                                  "pixel_spacing")})
             assert sorted(f.keys()) == ["RWaveTime", "echo", "flow", "otsu"]
-    check_outputs(saved, n, h, w, truth, PATHS[algo]["bounds"])
+    check_outputs(saved, n, h, w, truth, path["bounds"])
     device = profile_clip(lambda: process_video(dcm, out, None, **kw))
-    assert set(device["tvl1.cu"]) <= set(PATHS[algo]["device"]), \
-        (algo, device)
+    assert set(device["tvl1.cu"]) <= path["device"], (name, device)
 
     # the solver alone, on the same flow inputs, timed to completion
     _, arr = read_dicom_clip(dcm)
@@ -929,34 +966,218 @@ def k3_tuning():
                                              kw["sor_iters"], s), dev
 
 
-def phase_k2_path():
-    """compute_clip_flow on a 600x800 clip (bucketed to 608x800): its
-    finest level takes K2, the rest K1."""
+def k2_tuning():
+    """The block loop under each build of K2_VARIANTS, on the arguments
+    the 600x800 TV-L1 path hands it (compute_clip_flow on the K2 path's
+    clip, recorded as in the smoke), at the path's epsilon 0.01 and at 0:
+    mean ms over 3 calls (CUDA events), device launches per call,
+    own-traffic rate and equality with the plain version. The basis of
+    csrc/tvl1.cu's K2_S and extended tile. Run on the card with
+    python3 -c "import chip_smoke; chip_smoke.k2_tuning()"."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
+    from tee_optical_flow_torch.config import default_optical_flow_config
     from tee_optical_flow_torch.flow.pipeline import compute_clip_flow
+    from tee_optical_flow_torch.ops import cuda_lib
+    from tee_optical_flow_torch.ops import tvl1_kernels as tk
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
 
-    clip, truth = echo_clip(3, K2_H, K2_W, seed=2)
-    images = img2uint8(gray_from_clip(torch.from_numpy(clip).cuda()))
-    reset_counts()
-    torch.cuda.synchronize()
+    log(f"card: {phase_setup()[0]}")
     t0 = time.perf_counter()
-    flow = compute_clip_flow(images, "TVL1")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = read_counts()
-    log(f"K2 path, compute_clip_flow (3, {K2_H}, {K2_W}): {seconds:.3f} s "
-        f"(first call), launches {counts}")
-    assert flow.shape == (2, K2_H, K2_W, 2), tuple(flow.shape)
-    assert bool(torch.isfinite(flow).all())
-    # the finest level: 5 warps x 10 blocks, each after a median of u and
-    # v; the 4 coarser levels: 5 warps of K1, the medians inside
-    assert counts["tvl1_inner_block"] == 50, counts
-    assert counts["median_filter_5x5"] == 100, counts
-    assert counts["tvl1_outer_loop"] == 20, counts
-    assert counts["sor_sweeps"] == 0, counts
-    return counts
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(cuda_lib.load_library, K2_VARIANTS))
+    log(f"{len(libs)} builds of the kernels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clip, _ = echo_clip(K2_FRAMES, K2_H, K2_W)
+    frames = np.concatenate([clip, np.repeat(clip[-1:], 7, axis=0)])
+    images = img2uint8(gray_from_clip(torch.from_numpy(frames).cuda()))
+    captured, calls = {}, {}
+    with record_tvl1("tvl1_block_loop", (K2_SHAPE,), captured, calls):
+        compute_clip_flow(images, "TVL1", default_optical_flow_config())
+    args, kw = captured[K2_SHAPE]
+    b, h, w = args[0].shape
+    for eps in (0.01, 0.0):
+        kwe = dict(kw, epsilon=eps)
+        ref = tk.tvl1_block_loop_plain(*args, **kwe)
+        if eps > 0:
+            blocks = tk.block_loop_stops(args, ref, near=0.0, **kwe)[0]
+        else:
+            blocks = [kw["outer_iters"]] * b
+        for defines, lib in zip(K2_VARIANTS, libs):
+            def run():
+                return tk.block_loop(lib, args, **kwe)
+
+            err = max_abs(run(), ref)
+            ms = cuda_ms(run, 3)
+            dev = device_launches(run, TVL1_DEVICE_KERNELS)
+            s = defines.get("K2_S", K2_S)
+            tile = (defines.get("K2_EW", K2_TILE[0]),
+                    defines.get("K2_EH", K2_TILE[1]))
+            sweeps = lib.tvl1_block_sweeps(kw["inner_iters"])
+            own = sum(blocks) * k2_own_bytes(h, w, kw["inner_iters"], sweeps,
+                                             s=s, tile=tile)
+            log(f"K2 tuning ({b},{h},{w}) eps={eps} "
+                f"{defines or 'production'}: {ms:.4f} ms, {dev} device "
+                f"launches per call, max|kernel - plain| {err}, own traffic "
+                f"{own / (sum(blocks) * kw['inner_iters'] * h * w):.2f} B "
+                f"per pixel-step at {own / ms / 1e9:.3f} TB/s")
+            assert dev == k2_device_launches(lib, kw["outer_iters"],
+                                             kw["inner_iters"], eps), dev
+            if eps == 0:
+                assert err == 0.0, (defines, err)
+
+
+def k2_stops(args, got, kw):
+    """The block loop's result ``got`` held to the plain version at
+    epsilon > 0 (tvl1_kernels.block_loop_stops): every pair bit-equal to
+    the plain state after a block count its stop reaches when a decision
+    within K2_NEAR of the threshold flips. Returns the blocks each pair
+    ran in ``got`` (the plain version's count where that is one of them),
+    the pairs that came that near, and the least margin."""
+    from tee_optical_flow_torch.ops import tvl1_kernels as tk
+
+    blocks, reachable, matched, margin = tk.block_loop_stops(
+        args, got, near=K2_NEAR, **kw)
+    ran = []
+    for j, n in enumerate(blocks):
+        both = reachable[j] & matched[j]
+        assert both, (j, reachable[j], matched[j], margin[j])
+        ran.append(n if n in both else min(both))
+    near = [j for j in range(len(blocks)) if reachable[j] != {blocks[j]}]
+    return ran, near, min(margin)
+
+
+def phase_k2(captured, calls):
+    """The block loop against its plain version on the arguments the
+    600x800 TV-L1 path gave it at its finest level (39x608x800), first
+    warp: bit-equal at epsilon 0; at the path's 0.01 every pair bit-equal
+    to the plain state after a block count the stop reaches when a
+    decision within K2_NEAR of the threshold flips (k2_stops). Times it
+    per warp call (CUDA events), counts its device launches per call,
+    times it and counts its device launches on every warp's arguments
+    (its device time and launches per clip), and holds and times K2 alone
+    (tvl1_inner_block, one block of steps) and the standalone median on
+    the first warp's."""
+    import torch
+
+    from tee_optical_flow_torch.ops import tvl1_kernels as tk
+    from tee_optical_flow_torch.ops import warp as tw
+    from tee_optical_flow_torch.ops.cuda_lib import load_library
+
+    log(f"block-loop calls per level shape in the first 600x800 run: "
+        f"{ {f'{h}x{w}': c for (h, w), c in calls.items()} }")
+    assert calls == {K2_SHAPE: TV_WARPS}, calls
+    args, kw = captured[K2_SHAPE][0]
+    assert kw["epsilon"] == 0.01 and kw["use_median"], kw
+    lib = load_library()
+    b, h, w = args[0].shape
+    npx = b * h * w
+    outer, inner = kw["outer_iters"], kw["inner_iters"]
+    sweeps = lib.tvl1_block_sweeps(inner)
+    out = {}
+    for eps in (0.01, 0.0):
+        kwe = dict(kw, epsilon=eps)
+        tag = f"block loop ({b},{h},{w}) path args eps={eps}"
+        got = tk.tvl1_block_loop(*args, **kwe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = tk.tvl1_block_loop_plain(*args, **kwe)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = [max(float((x[j] - y[j]).abs().max())
+                    for x, y in zip(got, ref)) for j in range(b)]
+        err = max(diff)
+        if eps > 0:
+            blocks, near, margin = k2_stops(args, got, kwe)
+            log(f"{tag}: max|kernel - plain| = {err}; every pair bit-equal "
+                f"to the plain state after a block count its stop reaches "
+                f"when a decision within {K2_NEAR} of the threshold flips; "
+                f"{len(near)} pairs came that close: {near}, their max-abs "
+                f"{max([diff[j] for j in near], default=0.0)}; least margin "
+                f"{margin:.3g}")
+        else:
+            blocks, near = [outer] * b, []
+            log(f"{tag}: max|kernel - plain| = {err} (tolerance 0)")
+            assert err == 0.0, err
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        ms = cuda_ms(lambda: tk.tvl1_block_loop(*args, **kwe), 3)
+        dev = device_launches(lambda: tk.tvl1_block_loop(*args, **kwe),
+                              TVL1_DEVICE_KERNELS)
+        want = k2_device_launches(lib, outer, inner, eps)
+        assert dev == want, (tag, dev, want)
+        pair_blocks = sum(blocks)
+        pair_steps = pair_blocks * inner
+        ops_px = (pair_steps * OPS_STEP + pair_blocks
+                  * (2 * OPS_MEDIAN_PLANE + (OPS_ERR if eps > 0 else 0)))
+        bms, by = bound(16 * 4 * npx, ops_px * h * w)
+        own = pair_blocks * k2_own_bytes(h, w, inner, sweeps)
+        log(f"{tag}: {pair_blocks} of {b * outer} pair-blocks "
+            f"({pair_steps} pair-steps) ran; {ms:.3f} ms kernel, "
+            f"{plain_ms:.3f} ms plain, bound {bms:.4f} ms ({by}), {dev} "
+            f"device launches per call; own traffic "
+            f"({own / (pair_steps * h * w):.2f} B per pixel-step) at "
+            f"{own / ms / 1e9:.3f} TB/s")
+        out[eps] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, shape=[b, h, w],
+                        pair_blocks=pair_blocks, pair_steps=pair_steps,
+                        device_launches=dev, near_threshold_pairs=near)
+
+    # per clip: every warp's call, each timed alone and its device launches
+    # counted by the profiler
+    clip_ms = clip_dev = 0
+    for a, k in captured[K2_SHAPE]:
+        clip_ms += cuda_ms(lambda: tk.tvl1_block_loop(*a, **k), 3)
+        dev = device_launches(lambda: tk.tvl1_block_loop(*a, **k),
+                              TVL1_DEVICE_KERNELS)
+        assert dev == k2_device_launches(lib, outer, inner, k["epsilon"]), dev
+        clip_dev += dev
+    out["clip_device_ms"] = clip_ms
+    out["clip_device_launches"] = clip_dev
+    log(f"block loop per 600x800 clip: {clip_ms:.2f} ms over {clip_dev} "
+        f"device launches (the sums over its {len(captured[K2_SHAPE])} warp "
+        f"calls, each timed alone and traced)")
+
+    # K2 alone: one block of steps, no median, no stop
+    kw2 = dict(n_iters=inner, l_t=kw["l_t"], theta=kw["theta"],
+               taut=kw["taut"])
+    got = tk.tvl1_inner_block(*args, **kw2)
+    ref = tk.tvl1_inner_block_plain(*args, **kw2)
+    err = max_abs(got, ref)
+    log(f"K2 tvl1_inner_block ({b},{h},{w}) {inner} steps: max|kernel - "
+        f"plain| = {err} (tolerance 0: bit-equal)")
+    assert err == 0.0, err
+    ms = cuda_ms(lambda: tk.tvl1_inner_block(*args, **kw2), 5)
+    plain_ms = cuda_ms(lambda: tk.tvl1_inner_block_plain(*args, **kw2), 2)
+    dev = device_launches(lambda: tk.tvl1_inner_block(*args, **kw2),
+                          TVL1_DEVICE_KERNELS)
+    assert dev == sweeps, (dev, sweeps)
+    bms, by = bound(16 * 4 * npx, inner * OPS_STEP * npx)
+    own = b * k2_own_bytes(h, w, inner, sweeps, use_median=False)
+    log(f"K2 alone: {ms:.3f} ms kernel per block, {plain_ms:.3f} ms plain, "
+        f"bound {bms:.4f} ms ({by}), {dev} device launches; own traffic "
+        f"({own / (inner * npx):.2f} B per pixel-step) at "
+        f"{own / ms / 1e9:.3f} TB/s")
+    out["k2_alone"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, device_launches=dev)
+
+    # the standalone median (no path launches it): bit-equal
+    u = args[4]
+    got = tw.median_filter_5x5(u)
+    ref = tw.median_filter_5x5_plain(u)
+    err = float((got - ref).abs().max())
+    log(f"median 5x5 ({b},{h},{w}): max|kernel - plain| = {err} "
+        f"(tolerance 0: bit-equal)")
+    assert torch.equal(got, ref), err
+    ms = cuda_ms(lambda: tw.median_filter_5x5(u), 20)
+    plain_ms = cuda_ms(lambda: tw.median_filter_5x5_plain(u), 5)
+    bms, by = bound(2 * 4 * npx, OPS_MEDIAN_PLANE * npx)
+    log(f"median: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+        f"{bms:.4f} ms ({by})")
+    out["median"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, shape=[b, h, w])
+    return out
 
 
 def main() -> int:
@@ -972,25 +1193,38 @@ def main() -> int:
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
     k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
-    recorders = {"TVL1": lambda: record_k1(k1_args, k1_calls),
-                 "deepflow": lambda: record_k3(k3_args, k3_calls)}
+    k2_args, k2_calls = {}, {}
+    clips = {"TVL1": (clip, truth), "deepflow": (clip, truth),
+             "TVL1 600x800": echo_clip(K2_FRAMES, K2_H, K2_W)}
+    recorders = {
+        "TVL1": lambda: record_tvl1("tvl1_outer_loop", K1_SHAPES, k1_args,
+                                    k1_calls),
+        "deepflow": lambda: record_k3(k3_args, k3_calls),
+        "TVL1 600x800": lambda: record_tvl1("tvl1_block_loop", (K2_SHAPE,),
+                                            k2_args, k2_calls, every=True)}
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
+    results = {}
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
-        dcm = os.path.join(workdir, "echo_synthetic.dcm")
-        write_dicom_clip(dcm, np.repeat(clip[..., None], 3, axis=-1),
-                         frame_rate=FPS, pixel_spacing=SPACING_CM)
-        results = {algo: phase_path(algo, dcm, clip, truth, has_h5py,
-                                    workdir, recorders[algo])
-                   for algo in PATHS}
+        for name in PATHS:
+            frames, flow = clips[name]
+            n, h, w = frames.shape
+            dcm = os.path.join(workdir, f"echo_synthetic_{h}x{w}.dcm")
+            if not os.path.exists(dcm):
+                write_dicom_clip(
+                    dcm, np.repeat(frames[..., None], 3, axis=-1),
+                    frame_rate=FPS, pixel_spacing=SPACING_CM)
+            results[name] = phase_path(name, dcm, frames, flow, has_h5py,
+                                       workdir, recorders[name])
     k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
-    del k1_args, k3_args
+    k2 = phase_k2(k2_args, k2_calls)
+    del k1_args, k3_args, k2_args
     phase_saliency(clip)
-    k2_counts = phase_k2_path()
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
+    k2_counts = results["TVL1 600x800"][0]
     finest = f"{CLIP_H}x{CLIP_W}"
     df_device = results["deepflow"][3]["deepflow.cu"]
     records["sor_sweeps"] = dict(
@@ -1002,6 +1236,12 @@ def main() -> int:
         f"{records['sor_sweeps']['clip_device_launches']} device launches "
         f"({df_counts['sor_sweeps']} calls); device launches per call "
         + ", ".join(f"{k} {v['device_launches']}" for k, v in k3.items()))
+    records["tvl1_inner_block"] = dict(
+        k2[0.01], eps0=k2[0.0], k2_alone=k2["k2_alone"],
+        path_calls=k2_counts["tvl1_block_loop"],
+        clip_device_ms=k2["clip_device_ms"],
+        clip_device_launches=k2["clip_device_launches"])
+    records["median_filter_5x5"] = k2["median"]
     coarsest = K1_SHAPES[-1]
     records["tvl1_outer_loop"] = dict(
         k1[(K1_SHAPES[0], 0.01)], eps0=k1[(K1_SHAPES[0], 0.0)],
@@ -1009,37 +1249,42 @@ def main() -> int:
         levels={f"{coarsest[0]}x{coarsest[1]}": dict(
             k1[(coarsest, 0.01)], eps0=k1[(coarsest, 0.0)])},
         true_flow=records["tvl1_outer_loop"])
+    k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
-    for name, source, replaces, counts, path in (
+    for name, source, replaces, launches, path in (
             ("tvl1_outer_loop", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:198",
-             main_counts, "main: otsu+TVL1 33x480x640"),
+             main_counts["tvl1_outer_loop"], "main: otsu+TVL1 33x480x640"),
             ("median_filter_5x5", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:248",
-             k2_counts, "K2: compute_clip_flow 3x600x800"),
+             k2_counts["median_filter_5x5"],
+             f"{k2_path} (fused into K1 and the block loop: no path "
+             f"launches it standalone)"),
             ("tvl1_inner_block", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:141",
-             k2_counts, "K2: compute_clip_flow 3x600x800"),
+             k2_counts["tvl1_block_loop"],
+             f"{k2_path} (tvl1_block_loop calls, one per warp)"),
             ("sor_sweeps", "deepflow.cu",
              "tee_optical_flow_tpu/ops/deepflow_pallas.py:62",
-             df_counts, "DeepFlow: otsu+deepflow 33x480x640")):
+             df_counts["sor_sweeps"], "DeepFlow: otsu+deepflow 33x480x640")):
         rec = records[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tee_optical_flow_torch/csrc/{source}",
-            "replaces": replaces, "launches": counts[name], "path": path,
+            "replaces": replaces, "launches": launches, "path": path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
             **{k: rec[k] for k in ("eps0", "shape", "path_calls", "levels",
                                    "pair_steps", "pair_medians",
+                                   "pair_blocks", "k2_alone",
                                    "device_launches", "barrier_us",
                                    "clip_device_ms", "clip_device_launches",
                                    "true_flow")
                if k in rec},
         })
-    for algo, (_, clip_s, solver_s, _) in results.items():
-        log(f"{algo}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
+    for name, (_, clip_s, solver_s, _) in results.items():
+        log(f"{name}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

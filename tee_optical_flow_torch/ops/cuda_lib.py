@@ -3,7 +3,8 @@
 The sources are compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc -c`` per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
-``ctypes``: ``csrc/tvl1.cu`` (K1, K2 and the median) and
+``ctypes``: ``csrc/tvl1.cu`` (K1, the block loop with K2 and the
+median) and
 ``csrc/deepflow.cu`` (K3). The library lands in ``build/kernels/`` at the
 root of the checkout (a directory git ignores), named by a hash of the
 sources and the flags, so an edited source is rebuilt and unchanged ones
@@ -48,10 +49,11 @@ _F = ctypes.c_float
 # cudaGetLastError (decoded by tvl1_error_string)
 _SIGNATURES = {
     "tvl1_median5x5": (_P, _P, _I, _I, _I, _P),
-    "tvl1_primal": (_P,) * 11 + (_I, _I, _I, _F, _F, _P),
-    "tvl1_dual": (_P,) * 6 + (_I, _I, _I, _F, _P),
     "tvl1_outer_loop": (_P,) * 14 + (_I,) * 7 + (_F,) * 4 + (_P,),
     "tvl1_num_tiles": (_I, _I),
+    "tvl1_block_loop": (_P,) * 14 + (_I,) * 7 + (_F,) * 4 + (_P,),
+    "tvl1_block_sweeps": (_I,),
+    "tvl1_block_tiles": (_I, _I),
     "deepflow_resident": (_I, _I, _P),
     "deepflow_solve": (_P,) * 16 + (_I,) * 5 + (_F,) * 6 + (_P,),
 }

@@ -11,22 +11,22 @@ TPU reference does (``_tvl1_scale``):
 
   * K1 (``tvl1_kernels.tvl1_outer_loop``): OpenCV's epsilon stop checked
     per pair before every median and every inner iteration;
-  * K2 (``tvl1_kernels.tvl1_inner_block``) inside ``_tvl1_outer_eps_block``:
-    a pair stops after two quiet 30-iteration blocks in a row.
+  * the block loop (``tvl1_kernels.tvl1_block_loop``, K2's steps with the
+    median fused in): a pair stops after two quiet 30-iteration blocks in
+    a row.
 
-Both are CUDA kernels on a card and plain PyTorch on the CPU.
+Both run the whole per-warp loop on the device in one call on a card, and
+plain PyTorch on the CPU.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..core import as_device_tensor, pad_to_multiple
-from .tvl1_kernels import tvl1_inner_block, tvl1_outer_loop
+from .tvl1_kernels import tvl1_block_loop, tvl1_outer_loop
 from .warp import (
-    build_pyramid, centered_gradient, median_filter_5x5, pyramid_shapes,
+    build_pyramid, centered_gradient, pyramid_shapes,
     resize_bilinear, resize_cubic, warp_many_shift, warp_many_shift_tiled2d,
 )
 
@@ -49,41 +49,6 @@ def per_iteration_stop(h: int, w: int) -> bool:
     reference's answer at every size."""
     padded = pad_to_multiple(h, 8) * pad_to_multiple(w, 128)
     return 11 * padded * 4 * 2 <= 40 * 1024 * 1024
-
-
-def _tvl1_outer_eps_block(inner_block, u, v, p11, p12, p21, p22, *,
-                          outer_iters, use_median, epsilon):
-    """Epsilon stop at outer-block granularity (JAX package
-    ops/tvl1.py:175-233), the rule of the levels K2 runs: a pair freezes
-    after TWO CONSECUTIVE inner blocks each moved less than
-    epsilon^2 * area in total (net block delta).
-
-    ``inner_block(u, v, p11, p12, p21, p22) -> same 6-tuple`` runs one full
-    inner block. The loop runs the whole budget with frozen pairs masked,
-    which gives the JAX while_loop's result without a host wait."""
-    bb, hh, ww = u.shape
-    thresh = float(torch.tensor(epsilon * epsilon * hh * ww,
-                                dtype=torch.float32))
-    strikes = torch.zeros((bb,), dtype=torch.int32, device=u.device)
-    state = (u, v, p11, p12, p21, p22)
-    for _ in range(outer_iters):
-        u, v, p11, p12, p21, p22 = state
-        act = strikes < 2
-        m = act[:, None, None]
-        if use_median:
-            um = torch.where(m, median_filter_5x5(u), u)
-            vm = torch.where(m, median_filter_5x5(v), v)
-        else:
-            um, vm = u, v
-        nu, nv, n11, n12, n21, n22 = inner_block(um, vm, p11, p12, p21, p22)
-        derr = torch.sum((nu - um) ** 2 + (nv - vm) ** 2, dim=(1, 2))
-        strikes = torch.where(
-            act, torch.where(derr < thresh, strikes + 1,
-                             torch.zeros_like(strikes)), strikes)
-        state = (torch.where(m, nu, um), torch.where(m, nv, vm),
-                 torch.where(m, n11, p11), torch.where(m, n12, p12),
-                 torch.where(m, n21, p21), torch.where(m, n22, p22))
-    return state
 
 
 def _tvl1_scale(i0, i1, u, v, *, lam, tau, theta, warps, outer_iters,
@@ -113,27 +78,12 @@ def _tvl1_scale(i0, i1, u, v, *, lam, tau, theta, warps, outer_iters,
         grad = i1wx * i1wx + i1wy * i1wy
         rho_c = i1w - i1wx * u - i1wy * v - i0
 
-        if k1:
-            u, v, p11, p12, p21, p22 = tvl1_outer_loop(
-                rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22,
-                outer_iters=outer_iters, inner_iters=inner_iters,
-                use_median=use_median, l_t=l_t, theta=theta, taut=taut,
-                epsilon=epsilon)
-            continue
-
-        inner = functools.partial(tvl1_inner_block, rho_c, i1wx, i1wy, grad,
-                                  n_iters=inner_iters, l_t=l_t, theta=theta,
-                                  taut=taut)
-        if epsilon > 0.0:
-            u, v, p11, p12, p21, p22 = _tvl1_outer_eps_block(
-                inner, u, v, p11, p12, p21, p22, outer_iters=outer_iters,
-                use_median=use_median, epsilon=epsilon)
-            continue
-        for _ in range(outer_iters):
-            if use_median:
-                u = median_filter_5x5(u)
-                v = median_filter_5x5(v)
-            u, v, p11, p12, p21, p22 = inner(u, v, p11, p12, p21, p22)
+        loop = tvl1_outer_loop if k1 else tvl1_block_loop
+        u, v, p11, p12, p21, p22 = loop(
+            rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22,
+            outer_iters=outer_iters, inner_iters=inner_iters,
+            use_median=use_median, l_t=l_t, theta=theta, taut=taut,
+            epsilon=epsilon)
     return u, v
 
 

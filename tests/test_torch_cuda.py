@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1, K2, the median and K3) against their plain
-PyTorch versions, on the card. Marked ``cuda``; without a CUDA device every test skips, decided
-inside the ``card`` fixture so that every worker collects the same tests.
+"""The port's CUDA kernels (K1, the block loop with K2, the median and K3)
+against their plain PyTorch versions, on the card. Marked ``cuda``;
+without a CUDA device every test skips, decided inside the ``card``
+fixture so that every worker collects the same tests.
 
 On the machine with the card (which has no JAX, so the repo's conftest
 cannot load there):
@@ -10,11 +11,17 @@ cannot load there):
 
 Tolerances: the kernels compute each step in the plain version's
 operation order with separately rounded operations (built with
---fmad=false), so K2, K1 at epsilon=0 and the median are bit-equal. At
-epsilon > 0 the per-pair error is summed in another order than
-torch.sum, so a pair may stop one step apart: 0.05 px max-abs. K3 (the
-DeepFlow SOR solve) is bit-equal on both of its routes (resident and
-tiled), with and without the matching term.
+--fmad=false), so K2, K1 and the block loop at epsilon=0 and the median
+are bit-equal. At epsilon > 0 the per-pair error is summed in another
+order than torch.sum, so a pair may stop one step apart in K1 (0.05 px
+max-abs) and a block apart in the block loop. There a pair's state must
+be bit-equal to the plain fixed loop's after a block count that the
+two-quiet-blocks stop reaches when any decision whose block delta lay
+within NEAR (a share of the threshold) of it flips
+(``tvl1_kernels.block_loop_stops``): the plain version's own count where
+no delta came that close. K3 (the DeepFlow SOR
+solve) is bit-equal on both of its routes (resident and tiled), with and
+without the matching term.
 """
 
 import numpy as np
@@ -32,6 +39,11 @@ SHAPES = {"small": (2, 40, 48), "full": (4, 480, 640)}
 # K1 also at the TV-L1 path's coarsest level, a multiple of neither side
 # of its 32x16 tile
 K1_SHAPES = dict(SHAPES, level=(3, 197, 262))
+# the block loop at a ragged shape (a multiple of neither side of its
+# tile) and at the K2 path's finest level
+K2_SHAPES = {"small": (2, 40, 48), "ragged": (3, 77, 93),
+             "level": (4, 608, 800)}
+NEAR = 1e-4
 # K3 on each side of its size rule (one pair's nine planes in one block's
 # shared memory: H x ceil(W/2) <= 3,212): an odd resident shape, the
 # largest resident level of the DeepFlow path (60x80), a tiled shape just
@@ -135,6 +147,114 @@ def test_outer_loop_frozen_and_running_pairs(card, use_median):
         assert torch.equal(a[1::2], c[1::2])
         assert not bool(a[0::2].any())
     assert float((got[0][1::2] - args[4][1::2]).abs().max()) > 0.01
+
+
+@pytest.mark.parametrize("epsilon", [0.0, 0.01, 1e3])
+@pytest.mark.parametrize("size", list(K2_SHAPES))
+def test_block_loop_matches_plain(card, size, epsilon):
+    """Bit-equal at epsilon 0; at 0.01 every pair bit-equal to the plain
+    version's state after a block count its stop reaches when a decision
+    within NEAR of the threshold may flip (the plain version's own count
+    where no decision came that close); at 1e3 every pair freezes after
+    exactly two blocks: the state of two median + block rounds."""
+    args = _level(K2_SHAPES[size], card)
+    before_in = [t.clone() for t in args]
+    kw = dict(outer_iters=10, inner_iters=30, use_median=True,
+              epsilon=epsilon, **KW)
+    before = tk.tvl1_block_loop.launches
+    got = tk.tvl1_block_loop(*args, **kw)
+    assert tk.tvl1_block_loop.launches == before + 1
+    ref = tk.tvl1_block_loop_plain(*args, **kw)
+    if epsilon > 0:
+        _, reachable, matched, margin = tk.block_loop_stops(
+            args, got, near=NEAR, **kw)
+        for j in range(args[0].shape[0]):
+            assert reachable[j] & matched[j], (j, reachable[j], matched[j],
+                                               margin[j])
+    else:
+        assert _max_abs(got, ref) == 0.0
+    if epsilon == 1e3:
+        two = tk.tvl1_block_loop_plain(*args, **dict(kw, outer_iters=2,
+                                                     epsilon=0.0))
+        for a, c in zip(got, two):
+            assert torch.equal(a, c)
+    for a, c in zip(before_in, args):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("use_median", [True, False])
+def test_block_loop_frozen_and_running_pairs(card, use_median):
+    """Pairs 0 and 2 are all zero, so no block moves them and they freeze
+    after two blocks; pairs 1 and 3 move by far more than the tiny
+    threshold and run the whole budget. No decision is near the
+    threshold: bit-equal to the plain version, and the running pairs equal
+    an epsilon-0 run."""
+    args = _level((4, 40, 48), card)
+    for t in args:
+        t[0::2] = 0.0
+    kw = dict(outer_iters=5, inner_iters=7, use_median=use_median, **KW)
+    got = tk.tvl1_block_loop(*args, epsilon=1e-6, **kw)
+    ref = tk.tvl1_block_loop_plain(*args, epsilon=1e-6, **kw)
+    for a, c in zip(got, ref):
+        assert torch.equal(a, c)
+    running = tk.tvl1_block_loop_plain(*args, epsilon=0.0, **kw)
+    for a, c in zip(got, running):
+        assert torch.equal(a[1::2], c[1::2])
+        assert not bool(a[0::2].any())
+    assert float((got[0][1::2] - args[4][1::2]).abs().max()) > 0.01
+
+
+def _device_launches(fn, names):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(f"::{n}" in e.name for n in names))
+
+
+@pytest.mark.parametrize("n_iters", [1, 13, 30])
+def test_inner_block_device_launches(card, n_iters):
+    """K2 alone is tvl1_block_sweeps(n_iters) sweep launches (an even
+    number, at least 2) and nothing else of csrc/tvl1.cu; the block loop
+    adds one block-end launch per block with the stop."""
+    args = _level(SHAPES["small"], card)
+    lib = load_library()
+    sweeps = lib.tvl1_block_sweeps(n_iters)
+    assert sweeps >= 2 and sweeps % 2 == 0
+    names = ("block_sweep_kernel", "block_end_kernel", "outer_loop_kernel",
+             "median5x5_kernel")
+    got = _device_launches(
+        lambda: tk.tvl1_inner_block(*args, n_iters=n_iters, **KW), names)
+    assert got == sweeps
+    got = _device_launches(
+        lambda: tk.tvl1_block_loop(*args, outer_iters=3, inner_iters=n_iters,
+                                   use_median=True, epsilon=0.01, **KW),
+        names)
+    assert got == 3 * (sweeps + 1)
+
+
+def test_block_loop_raises_on_refused_launch(card):
+    """A build whose extended tile needs more shared memory than a block
+    may have (160x128: 901,120 B) is refused: the call raises a
+    RuntimeError and nothing falls back; the default build still runs
+    after it. Bad inputs are refused before any launch."""
+    args = _level(SHAPES["small"], card)
+    kw = dict(outer_iters=2, inner_iters=5, use_median=True, epsilon=0.01,
+              **KW)
+    big = load_library({"K2_EW": 160, "K2_EH": 128})
+    with pytest.raises(RuntimeError, match="tvl1_block_loop"):
+        tk.block_loop(big, args, **kw)
+    got = tk.tvl1_block_loop(*args, **kw)
+    ref = tk.tvl1_block_loop_plain(*args, **kw)
+    assert _max_abs(got, ref) == 0.0
+    for bad in (args[4].double(), args[4].cpu(),
+                args[4].transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError):
+            tk.tvl1_block_loop(*args[:4], bad, *args[5:], **kw)
 
 
 def test_outer_loop_refuses_bad_inputs(card):

@@ -1,7 +1,8 @@
 """The PyTorch port's TV-L1 solver against the JAX package's, on the CPU:
 one primal-dual step, K2's plain version (the inner block), K1's plain
-version (the per-warp outer loop with the epsilon stop), the
-two-quiet-blocks stop, the per-size dispatch rule, and whole solves.
+version (the per-warp outer loop with the epsilon stop), the block loop
+(the two-quiet-blocks stop around K2, and its epsilon-0 fixed loop), the
+per-size dispatch rule, and whole solves.
 
 The JAX side runs as its own tests run it on the CPU: the XLA twins, and
 the Pallas kernels in interpret mode. Tolerances: one step agrees to
@@ -119,30 +120,66 @@ def test_outer_loop_matches_jax(rng, epsilon):
             np.testing.assert_array_equal(a.numpy(), c.numpy())
 
 
-@pytest.mark.parametrize("epsilon", [1e3, 1e-9, 0.01])
-def test_outer_eps_block_matches_jax(rng, epsilon):
-    """The two-quiet-blocks stop (_tvl1_outer_eps_block) against the JAX
-    function with the same inner block, as tests/test_tvl1.py runs it: a
-    huge epsilon freezes every pair after exactly two blocks, a tiny one
-    runs the whole budget, the production one stops in between."""
+def _block_loop_vs_jax(rng, epsilon, inner):
+    """tvl1_block_loop on CPU tensors (its plain version) against the JAX
+    _tvl1_outer_eps_block around ``inner`` (the XLA inner block, or the
+    Pallas K2 in interpret mode with tile_h=16: three tiles with halos over
+    h=40), or at epsilon 0 the JAX fixed loop of median + inner block."""
     args = _state(rng, b=3)
     kw = dict(n_iters=10, l_t=0.15 * 0.3, theta=0.3, taut=0.25 / 0.3)
-    j_inner = functools.partial(jt.tvl1_inner_block_xla, *args[:4], **kw)
-    t_inner = functools.partial(tk.tvl1_inner_block,
-                                *[_t(a) for a in args[:4]], **kw)
-    okw = dict(outer_iters=6, use_median=True, epsilon=epsilon)
-    ref = jt._tvl1_outer_eps_block(j_inner, *args[4:], **okw)
-    got = tt._tvl1_outer_eps_block(t_inner, *[_t(a) for a in args[4:]],
-                                   **okw)
-    _assert_close(ref, got, LOOP_ATOL, f"eps={epsilon}")
+    if inner == "xla":
+        j_inner = functools.partial(jt.tvl1_inner_block_xla, *args[:4], **kw)
+    else:
+        j_inner = functools.partial(jp.tvl1_inner_block_pallas, *args[:4],
+                                    tile_h=16, interpret=True, **kw)
+    outer = 6
+    if epsilon > 0:
+        ref = jt._tvl1_outer_eps_block(j_inner, *args[4:], outer_iters=outer,
+                                       use_median=True, epsilon=epsilon)
+    else:
+        ref = list(args[4:])
+        for _ in range(outer):
+            ref[0] = jw.median_filter_5x5(ref[0])
+            ref[1] = jw.median_filter_5x5(ref[1])
+            ref = list(j_inner(*ref))
+    got = tk.tvl1_block_loop(
+        *[_t(a) for a in args], outer_iters=outer, inner_iters=kw["n_iters"],
+        use_median=True, l_t=kw["l_t"], theta=kw["theta"], taut=kw["taut"],
+        epsilon=epsilon)
+    _assert_close(ref, got, LOOP_ATOL, f"{inner} eps={epsilon}")
+    return args, kw, got
+
+
+@pytest.mark.parametrize("epsilon", [1e3, 1e-9, 0.01])
+def test_outer_eps_block_matches_jax(rng, epsilon):
+    """The two-quiet-blocks stop (the block loop's plain version) against
+    the JAX _tvl1_outer_eps_block with the XLA inner block, as
+    tests/test_tvl1.py runs it: a huge epsilon freezes every pair after
+    exactly two blocks, a tiny one runs the whole budget, the production
+    one stops in between. Within LOOP_ATOL: the same ops, a few rounded
+    differently by the JAX CPU backend."""
+    args, kw, got = _block_loop_vs_jax(rng, epsilon, "xla")
     if epsilon == 1e3:
         state = [_t(a) for a in args[4:]]
         for _ in range(2):
             state[0] = tw.median_filter_5x5(state[0])
             state[1] = tw.median_filter_5x5(state[1])
-            state = list(t_inner(*state))
+            state = list(tk.tvl1_inner_block(*[_t(a) for a in args[:4]],
+                                             *state, **kw))
         for a, c in zip(state, got):
             np.testing.assert_array_equal(a.numpy(), c.numpy())
+
+
+@pytest.mark.parametrize("epsilon", [1e3, 1e-9, 0.01])
+def test_block_loop_matches_jax_pallas(rng, epsilon):
+    """The same stop around the Pallas K2 in interpret mode."""
+    _block_loop_vs_jax(rng, epsilon, "pallas")
+
+
+def test_block_loop_fixed_matches_jax(rng):
+    """Epsilon 0: outer_iters x [median, inner block] for every pair,
+    against the JAX median + tvl1_inner_block_xla loop."""
+    _block_loop_vs_jax(rng, 0.0, "xla")
 
 
 def test_dispatch_rule_matches_fits_vmem_fused():
