@@ -18,6 +18,15 @@ arguments the TV-L1 and the DeepFlow path handed them):
     K1's size rule and runs the block loop (K2's steps with the median
     fused in, inside the two-quiet-blocks stop), held against its plain
     version on the arguments the path handed it;
+  * SAM (BASELINE config 3): the 480x640 DICOM through
+    process_video(mode="RVIO_2class", OF_algo="TVL1", no_saliency=True)
+    with the vit_t segmentor at its full 1024 width (seeded random
+    weights, bfloat16, micro-batch 4): its masks held bit-equal to the
+    port's clean_mask run on the CPU over the card's own labels, its flow
+    to the TV-L1 bounds, 25 K1 calls;
+  * the SAM model itself (phase_sam): float32 logits on the card against
+    the CPU (TF32 off), bfloat16 against float32, micro-batch 1 against 4,
+    and the segmentor's time per frame in each precision;
   * the fine-grained saliency map of the clip, card against CPU.
 
 It checks what comes out (schema, wall end-point error against the
@@ -51,6 +60,10 @@ import numpy as np
 # call must move over the first and the operations it does over the second
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and the dense tensor-core peaks the SAM segmentor's share is read
+# against: bfloat16, and TF32 (float32 matrix products with TF32 on)
+BF16_DENSE_OPS_PER_S = 989e12
+TF32_DENSE_OPS_PER_S = 495e12
 
 CLIP_FRAMES, CLIP_H, CLIP_W = 33, 480, 640
 # the K2 path's clip: 600x800 frames bucket to 608x800, whose finest level
@@ -83,6 +96,24 @@ WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX = 0.1, 0.25
 # production settings, pairs 0-1, 3-4 and 7-8, median motion 0.44-2.29
 # px) measured a median of 0.034-0.044 px and a p95 of 0.098-0.119 px
 DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX = 0.13, 0.36
+
+# the SAM path: vit_t at 1024 with 3 classes (background, rv, av), seeded
+# random weights, bfloat16 (the CLI's model_dtype) at micro-batch 4 (the
+# CLI's); its masks are held bit-equal to the CPU clean_mask over windows
+# of the card's labels around these frames (a frame's masks depend only
+# on the labels of frames k-1 to k+2: tests/test_torch_segment.py)
+SAM_SEED, SAM_CLASSES, SAM_MICRO_BATCH = 0, 3, 4
+SAM_WINDOWS = (0, 16, 32)
+# phase_sam's bounds. Float32 on the card against the CPU, TF32 off: the
+# logits' max-abs difference under SAM_F32_ATOL and under SAM_F32_REL of
+# their range, at least SAM_F32_AGREE of the argmax labels equal (float32
+# rounding in another order; a label flips only on a near-tie). bfloat16
+# against float32 on the card: at least SAM_BF16_AGREE of the labels
+# equal and the max-abs logit error under SAM_BF16_REL of the range (on
+# the CPU, vit_t at 128 measured 99.1-99.4% and 0.9-1.1%:
+# tests/test_torch_sam.py)
+SAM_F32_ATOL, SAM_F32_REL, SAM_F32_AGREE = 2e-3, 5e-4, 0.998
+SAM_BF16_AGREE, SAM_BF16_REL = 0.97, 0.06
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -664,10 +695,11 @@ def read_counts():
             "sor_sweeps": dk.sor_sweeps.launches}
 
 
-def check_outputs(saved, n, h, w, truth, bounds):
+def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
     """The HDF5 schema on what process_video wrote (or handed to its save
     function), and the flow against the analytic motion on the wall,
     within bounds = (median, p95) px."""
+    from tee_optical_flow_torch.flow.segment import LABEL_MAPS
     from tee_optical_flow_torch.synthetic import echo_sector_masks
 
     flow, echo, masks = saved["flow"], saved["echo"], saved["masks"]
@@ -675,12 +707,16 @@ def check_outputs(saved, n, h, w, truth, bounds):
     assert flow.shape == (n, h, w, 2) and flow.dtype == np.float16, \
         (flow.shape, flow.dtype)
     assert echo.shape == (n, h, w) and echo.dtype == np.float16
-    assert list(masks) == ["otsu"], list(masks)
-    assert masks["otsu"].shape == (n, h, w, 2) and masks["otsu"].dtype == bool
-    assert masks["otsu"].any() and not masks["otsu"].all()
+    names = ["otsu"] if mode == "otsu" else list(LABEL_MAPS[mode]) + ["bkgd"]
+    assert list(masks) == names, list(masks)
+    for name in names:
+        assert masks[name].shape == (n, h, w, 2), (name, masks[name].shape)
+        assert masks[name].dtype == bool, (name, masks[name].dtype)
+    if mode == "otsu":
+        assert masks["otsu"].any() and not masks["otsu"].all()
     np.testing.assert_array_equal(flow[-1], flow[-2])  # duplicated last
     assert np.isfinite(flow.astype(np.float32)).all()
-    assert attrs["nframes"] == n and attrs["mode"] == "otsu"
+    assert attrs["nframes"] == n and attrs["mode"] == mode
     assert abs(attrs["frame_rate"] - FPS) < 1e-9
     assert abs(attrs["pixel_spacing"] - SPACING_CM) < 1e-12
     px = flow[:-1].astype(np.float32) / (SPACING_CM * FPS)
@@ -744,39 +780,46 @@ def profile_clip(run_clip):
     return sources
 
 
-# per path through process_video: its flow algorithm, the launches each
-# clip must count, the only csrc/tvl1.cu kernels its profiled clip may
-# show, and the wall EPE bounds. TV-L1 at 480x640: 5 levels x 5 warps of
-# K1, each one device launch with the medians inside. DeepFlow: 5 levels x
-# 3 fixed points of K3. TV-L1 at 600x800: the finest level's 5 warps take
-# the block loop (median fused in), the 4 coarser levels K1; the 480x640
-# TV-L1 bounds hold there too (the reading is printed)
+# per path through process_video: its mask mode and flow algorithm, the
+# launches each clip must count, the only csrc/tvl1.cu kernels its
+# profiled clip may show, and the wall EPE bounds. TV-L1 at 480x640: 5
+# levels x 5 warps of K1, each one device launch with the medians inside.
+# DeepFlow: 5 levels x 3 fixed points of K3. TV-L1 at 600x800: the finest
+# level's 5 warps take the block loop (median fused in), the 4 coarser
+# levels K1; the 480x640 TV-L1 bounds hold there too (the reading is
+# printed). SAM: the segmentor's masks, then the 480x640 TV-L1 flow
 _NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
          "median_filter_5x5": 0, "sor_sweeps": 0}
 PATHS = {
-    "TVL1": dict(algo="TVL1",
+    "TVL1": dict(mode="otsu", algo="TVL1",
                  counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
                  device={"outer_loop_kernel"},
                  bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
-    "deepflow": dict(algo="deepflow",
+    "deepflow": dict(mode="otsu", algo="deepflow",
                      counts=dict(_NONE, sor_sweeps=DF_LEVELS * DF_FP_ITERS),
                      device=set(),
                      bounds=(DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX)),
     "TVL1 600x800": dict(
-        algo="TVL1",
+        mode="otsu", algo="TVL1",
         counts=dict(_NONE, tvl1_outer_loop=(TV_LEVELS - 1) * TV_WARPS,
                     tvl1_block_loop=TV_WARPS),
         device={"outer_loop_kernel", "block_sweep_kernel",
                 "block_end_kernel"},
         bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
+    "SAM": dict(mode="RVIO_2class", algo="TVL1",
+                counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
+                device={"outer_loop_kernel"},
+                bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
 }
 
 
 def phase_path(name, dcm, clip, truth, has_h5py, workdir,
-               first_run=contextlib.nullcontext):
+               first_run=contextlib.nullcontext, segmentor=None):
     """One path of PATHS through process_video, twice (the first inside
     ``first_run()``); the counts of each run, the outputs' checks, a
-    profiled clip and the solver alone."""
+    profiled clip and the solver alone. A segmentor mode runs
+    ``segmentor``. Returns the second run's counts, its clip seconds, the
+    solver's seconds, the profiled clip's kernels and what was saved."""
     import torch
 
     from tee_optical_flow_torch.config import default_optical_flow_config
@@ -789,10 +832,10 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
 
     n, h, w = clip.shape
     path = PATHS[name]
-    algo = path["algo"]
-    log(f"--- path: process_video(mode='otsu', OF_algo={algo!r}, "
+    algo, mode = path["algo"], path["mode"]
+    log(f"--- path: process_video(mode={mode!r}, OF_algo={algo!r}, "
         f"no_saliency=True) on {n}x{h}x{w}")
-    out = os.path.join(workdir, f"echo_synthetic_{algo}_{h}x{w}.hdf5")
+    out = os.path.join(workdir, f"echo_synthetic_{mode}_{algo}_{h}x{w}.hdf5")
     cfg = default_optical_flow_config()
     saved = {}
 
@@ -803,7 +846,7 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
                             "frame_rate": metadata["frame_rate"],
                             "pixel_spacing": metadata["pixel_spacing"]})
 
-    kw = dict(verbose=False, mode="otsu", OF_algo=algo, no_saliency=True,
+    kw = dict(verbose=False, mode=mode, OF_algo=algo, no_saliency=True,
               config=cfg)
     if not has_h5py:
         kw["_save_fn"] = capture
@@ -816,7 +859,7 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with first_run() if run == 0 else contextlib.nullcontext():
-            process_video(dcm, out, None, **kw)
+            process_video(dcm, out, segmentor, **kw)
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t0)
         counts.append(read_counts())
@@ -834,9 +877,10 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
                          attrs={k: f["flow"].attrs[k] for k in
                                 ("nframes", "mode", "frame_rate",
                                  "pixel_spacing")})
-            assert sorted(f.keys()) == ["RWaveTime", "echo", "flow", "otsu"]
-    check_outputs(saved, n, h, w, truth, path["bounds"])
-    device = profile_clip(lambda: process_video(dcm, out, None, **kw))
+            assert sorted(f.keys()) == sorted(["RWaveTime", "echo", "flow",
+                                               *saved["masks"]])
+    check_outputs(saved, n, h, w, truth, path["bounds"], mode)
+    device = profile_clip(lambda: process_video(dcm, out, segmentor, **kw))
     assert set(device["tvl1.cu"]) <= path["device"], (name, device)
 
     # the solver alone, on the same flow inputs, timed to completion
@@ -849,10 +893,10 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
     compute_clip_flow(images, algo, cfg)
     torch.cuda.synchronize()
     solver_s = time.perf_counter() - t0
-    log(f"{algo} steady-state clip: {clip_s[1]:.3f} s (first run "
+    log(f"{name} steady-state clip: {clip_s[1]:.3f} s (first run "
         f"{clip_s[0]:.3f} s); solver alone: {solver_s:.3f} s for "
         f"{images.shape[0] - 1} pairs at {h}x{w}")
-    return counts[1], clip_s[1], solver_s, device
+    return counts[1], clip_s[1], solver_s, device, saved
 
 
 def phase_saliency(clip):
@@ -1180,6 +1224,179 @@ def phase_k2(captured, calls):
     return out
 
 
+def sam_segmentor(captured):
+    """The SAM path's segmentor: vit_t at 1024 with SAM_CLASSES classes,
+    seeded random weights, bfloat16, micro-batch SAM_MICRO_BATCH. Its
+    labels_device keeps the labels of its last call in
+    ``captured["labels"]``."""
+    import torch
+
+    from tee_optical_flow_torch.models import (
+        build_sam_vit_t, make_clip_segmentor,
+    )
+
+    seg = make_clip_segmentor(build_sam_vit_t(
+        num_classes=SAM_CLASSES, seed=SAM_SEED, dtype=torch.bfloat16),
+        micro_batch=SAM_MICRO_BATCH)
+    inner = seg.labels_device
+
+    def recording(clip, clip_hw):
+        captured["labels"] = inner(clip, clip_hw)
+        return captured["labels"]
+
+    seg.labels_device = recording
+    return seg
+
+
+def phase_sam_masks(labels, masks, dcm, seg):
+    """The SAM path's masks against the port's clean_mask run on the CPU
+    over the card's own labels (the last run's, all bucketed frames):
+    bit-equal at the frames of SAM_WINDOWS, each from the window of labels
+    its masks depend on (frames k-1 to k+2; the whole clip's labelling on
+    the CPU would take ~15 min). Then the segmentation stage's two parts
+    timed apart on the card (host clock to a synchronise): the segmentor
+    on the clip, and clean_mask of its labels in RVIO_2class (2 labels)
+    and in A4C (8 labels: the labelling costs the same whatever the
+    labels hold)."""
+    import torch
+
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow.segment import clean_mask
+    from tee_optical_flow_torch.io.dicom import read_dicom_clip
+
+    cfg = default_optical_flow_config()
+    lab = labels.cpu()
+    shares = np.bincount(lab.numpy().ravel(), minlength=SAM_CLASSES)
+    log(f"SAM labels {tuple(lab.shape)} (bucketed clip): class shares "
+        f"{np.round(shares / shares.sum(), 4).tolist()}; mask coverage "
+        + ", ".join(f"{k} {float(v[..., 0].mean()):.4f}"
+                    for k, v in masks.items()))
+    t0 = time.perf_counter()
+    for k in SAM_WINDOWS:
+        lo = max(k - 1, 0)
+        ref = clean_mask(lab[lo:k + 3], "RVIO_2class", config=cfg)
+        for name, mask in masks.items():
+            assert np.array_equal(mask[k], ref[name][k - lo]), (name, k)
+    log(f"SAM masks at frames {SAM_WINDOWS} bit-equal to clean_mask on the "
+        f"CPU over the card's labels ({time.perf_counter() - t0:.1f} s)")
+
+    _, arr = read_dicom_clip(dcm)
+    gray = np.concatenate([arr, np.repeat(arr[-1:], lab.shape[0]
+                                          - arr.shape[0], axis=0)])[..., 0]
+    clip_dev = torch.from_numpy(np.ascontiguousarray(gray)).cuda()
+    h, w = gray.shape[1:]
+    # both parts are warm: the path's three clips ran them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = seg.labels_device(clip_dev, (h, w))
+    torch.cuda.synchronize()
+    stages = {"segmentor_s": time.perf_counter() - t0}
+    for mode in ("RVIO_2class", "A4C"):
+        t0 = time.perf_counter()
+        clean_mask(labels, mode, config=cfg)
+        torch.cuda.synchronize()
+        stages[f"clean_mask_{mode}_s"] = time.perf_counter() - t0
+    log(f"SAM segmentation stage apart, {lab.shape[0]} frames: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return stages
+
+
+def phase_sam(clip):
+    """The vit_t SAM model at 1024 on the card, seeded random weights:
+    float32 logits of the clip's first 2 frames against the CPU with TF32
+    off (SAM_F32_*), bfloat16 against float32 on the card (SAM_BF16_*),
+    micro-batch 1 against 4 (label agreement, printed), and the
+    segmentor's ms per frame at micro-batch 4 (CUDA events) in bfloat16
+    and in float32 with TF32 off and on, beside the FLOPs per frame the
+    matrix products and convolutions do (torch's FlopCounterMode, from
+    their shapes) and the share of the card's dense peak for the type."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tee_optical_flow_torch.models import (
+        build_sam_vit_t, make_clip_segmentor, preprocess_frames,
+    )
+
+    n, h, w = clip.shape
+    kw = dict(num_classes=SAM_CLASSES, seed=SAM_SEED)
+    cpu = build_sam_vit_t(device="cpu", **kw)
+    f32 = build_sam_vit_t(**kw)
+    bf16 = build_sam_vit_t(dtype=torch.bfloat16, **kw)
+    frames = np.ascontiguousarray(clip[:2])
+
+    def logits(model, device):
+        with torch.no_grad():
+            x = preprocess_frames(torch.from_numpy(frames).to(device),
+                                  model.image_size)
+            return model(x)[0].float().cpu()
+
+    assert not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    t0 = time.perf_counter()
+    ref = logits(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got = logits(f32, "cuda")
+    side = f32.image_size // 4
+    assert got.shape == (2, SAM_CLASSES, side, side), got.shape
+    assert bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.max() - ref.min())
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    log(f"SAM vit_t float32, TF32 off, 2 frames: card vs CPU logits max-abs "
+        f"{err:.3g} (bound {SAM_F32_ATOL}), {rel:.3g} of their range "
+        f"[{float(ref.min()):.3f}, {float(ref.max()):.3f}] (bound "
+        f"{SAM_F32_REL}); labels agree {agree:.6f} (bound {SAM_F32_AGREE}); "
+        f"CPU forward {cpu_s:.1f} s")
+    assert err < SAM_F32_ATOL and rel < SAM_F32_REL, (err, rel)
+    assert agree >= SAM_F32_AGREE, agree
+    low = logits(bf16, "cuda")
+    err16 = float((low - got).abs().max())
+    rel16 = err16 / float(got.max() - got.min())
+    agree16 = float((low.argmax(1) == got.argmax(1)).float().mean())
+    log(f"SAM bfloat16 vs float32 on the card: labels agree {agree16:.5f} "
+        f"(bound {SAM_BF16_AGREE}), logits max-abs {err16:.4f} = "
+        f"{rel16:.4f} of the range (bound {SAM_BF16_REL})")
+    assert agree16 >= SAM_BF16_AGREE and rel16 < SAM_BF16_REL, \
+        (agree16, rel16)
+
+    clip8 = torch.from_numpy(np.ascontiguousarray(clip[:8])).cuda()
+    by_mb = {mb: make_clip_segmentor(bf16, micro_batch=mb).labels_device(
+        clip8, (h, w)) for mb in (1, SAM_MICRO_BATCH)}
+    agree_mb = float((by_mb[1] == by_mb[SAM_MICRO_BATCH]).float().mean())
+    log(f"SAM bfloat16 labels, micro-batch 1 vs {SAM_MICRO_BATCH} on 8 "
+        f"frames: agree {agree_mb:.6f}")
+
+    clip4 = clip8[:SAM_MICRO_BATCH]
+    # with grad on: the counter's module hooks need the autograd graph
+    with FlopCounterMode(display=False) as counter:
+        f32(preprocess_frames(clip4[:1], f32.image_size))
+    flops = counter.get_total_flops()
+    timing = {}
+    try:
+        for tag, model, tf32, peak in (
+                ("bf16", bf16, False, BF16_DENSE_OPS_PER_S),
+                ("f32", f32, False, FP32_OPS_PER_S),
+                ("f32_tf32", f32, True, TF32_DENSE_OPS_PER_S)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            seg = make_clip_segmentor(model, micro_batch=SAM_MICRO_BATCH)
+            ms = cuda_ms(lambda: seg.labels_device(clip4, (h, w)), 5)
+            ms_frame = ms / SAM_MICRO_BATCH
+            share = flops / (ms_frame * 1e-3) / peak
+            timing[tag] = dict(ms_per_frame=ms_frame, share_of_peak=share)
+            log(f"SAM segmentor {tag} (TF32 {'on' if tf32 else 'off'}), "
+                f"micro-batch {SAM_MICRO_BATCH}: {ms_frame:.3f} ms per "
+                f"frame; {flops / 1e9:.2f} GFLOP per frame -> "
+                f"{flops / (ms_frame * 1e-3) / 1e12:.2f} TFLOP/s, "
+                f"{100 * share:.2f}% of the {peak / 1e12:.0f} TFLOP/s peak")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dict(f32_max_abs=err, f32_rel=rel, f32_agree=agree,
+                bf16_agree=agree16, bf16_rel=rel16, mb_agree=agree_mb,
+                gflop_per_frame=flops / 1e9, timing=timing)
+
+
 def main() -> int:
     import torch
 
@@ -1193,15 +1410,18 @@ def main() -> int:
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
     k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
-    k2_args, k2_calls = {}, {}
+    k2_args, k2_calls, sam_labels = {}, {}, {}
     clips = {"TVL1": (clip, truth), "deepflow": (clip, truth),
-             "TVL1 600x800": echo_clip(K2_FRAMES, K2_H, K2_W)}
+             "TVL1 600x800": echo_clip(K2_FRAMES, K2_H, K2_W),
+             "SAM": (clip, truth)}
     recorders = {
         "TVL1": lambda: record_tvl1("tvl1_outer_loop", K1_SHAPES, k1_args,
                                     k1_calls),
         "deepflow": lambda: record_k3(k3_args, k3_calls),
         "TVL1 600x800": lambda: record_tvl1("tvl1_block_loop", (K2_SHAPE,),
-                                            k2_args, k2_calls, every=True)}
+                                            k2_args, k2_calls, every=True),
+        "SAM": contextlib.nullcontext}
+    seg = sam_segmentor(sam_labels)
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
@@ -1215,13 +1435,20 @@ def main() -> int:
                 write_dicom_clip(
                     dcm, np.repeat(frames[..., None], 3, axis=-1),
                     frame_rate=FPS, pixel_spacing=SPACING_CM)
-            results[name] = phase_path(name, dcm, frames, flow, has_h5py,
-                                       workdir, recorders[name])
+            results[name] = phase_path(
+                name, dcm, frames, flow, has_h5py, workdir, recorders[name],
+                seg if PATHS[name]["mode"] != "otsu" else None)
+            if name == "SAM":
+                sam_stages = phase_sam_masks(sam_labels["labels"],
+                                             results[name][4]["masks"], dcm,
+                                             seg)
+    del seg, sam_labels
     k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
     k2 = phase_k2(k2_args, k2_calls)
     del k1_args, k3_args, k2_args
     phase_saliency(clip)
+    sam = phase_sam(clip)
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
     k2_counts = results["TVL1 600x800"][0]
@@ -1248,7 +1475,8 @@ def main() -> int:
         barrier_us=k1["barrier_us"],
         levels={f"{coarsest[0]}x{coarsest[1]}": dict(
             k1[(coarsest, 0.01)], eps0=k1[(coarsest, 0.0)])},
-        true_flow=records["tvl1_outer_loop"])
+        true_flow=records["tvl1_outer_loop"],
+        sam_path_launches=results["SAM"][0]["tvl1_outer_loop"])
     k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
     for name, source, replaces, launches, path in (
@@ -1280,11 +1508,16 @@ def main() -> int:
                                    "pair_blocks", "k2_alone",
                                    "device_launches", "barrier_us",
                                    "clip_device_ms", "clip_device_launches",
-                                   "true_flow")
+                                   "true_flow", "sam_path_launches")
                if k in rec},
         })
-    for name, (_, clip_s, solver_s, _) in results.items():
+    for name, (_, clip_s, solver_s, _, _) in results.items():
         log(f"{name}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
+    sam_clip_s = results["SAM"][1]
+    log(f"SAM: {json.dumps(sam)}; stages {json.dumps(sam_stages)}; "
+        f"clean_mask RVIO_2class {sam_stages['clean_mask_RVIO_2class_s']:.3f}"
+        f" s = {100 * sam_stages['clean_mask_RVIO_2class_s'] / sam_clip_s:.1f}"
+        f"% of the {sam_clip_s:.3f} s clip")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,3 +22,7 @@ class OpticalFlowCalculationError(OpticalFlowError):
 
 class ConfigurationError(OpticalFlowError):
     """Raised on invalid or inconsistent configuration."""
+
+
+class CheckpointError(OpticalFlowError):
+    """Raised when a model checkpoint cannot be loaded or converted."""

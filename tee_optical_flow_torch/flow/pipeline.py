@@ -1,10 +1,11 @@
 """DICOM -> masks -> dense flow -> HDF5: the production paths of the
-PyTorch port (the JAX package's flow/pipeline.py, otsu masks with TV-L1 or
-DeepFlow, on per-frame normalised or saliency flow input).
+PyTorch port (the JAX package's flow/pipeline.py: Otsu or SAM segmentor
+masks, TV-L1 or DeepFlow, on per-frame normalised or saliency flow input).
 
 Parity with reference process_video (calculate_optical_flow.py:478-625):
 
-  * one device copy of the clip feeds the Otsu masks and the flow;
+  * one device copy of the clip feeds the masks (the segmentor runs on
+    it) and the flow;
   * TV-L1 and DeepFlow: all N-1 pairs are solved as one batch
     (ops/tvl1.py, ops/deepflow.py), with the primal-dual loops and the SOR
     solve as CUDA kernels on a card;
@@ -12,9 +13,7 @@ Parity with reference process_video (calculate_optical_flow.py:478-625):
     by pixel_spacing*frame_rate (:600), echo stored as rgb2gray floats.
 
 Not ported yet, and refused with NotImplementedError rather than run
-quietly: the segmentor modes (A4C, RVIO_2class, MouseRV_A4C), WASE
-background compensation (it needs the segmentor's ``bkgd`` mask) and
-companion waveforms.
+quietly: WASE background compensation and companion waveforms.
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ from ..ops.imaging import gray_from_clip, img2uint8
 from ..ops.saliency import fine_grained_saliency
 from ..ops.tvl1 import tvl1_clip_flow
 from ..utils import safe_makedir, trace_stage
-from .segment import predict_movie_thres
+from .segment import predict_movie, predict_movie_thres
 
 logger = logging.getLogger(__name__)
 
@@ -126,12 +125,20 @@ def process_video(dcm_path: str, save_path: str,
                   waveform_folder: Optional[str] = None,
                   config: Optional[OpticalFlowCalculationConfig] = None,
                   device=None,
+                  _clip_override: Optional[np.ndarray] = None,
+                  _metadata_override: Optional[Dict] = None,
                   _writer: Optional[AsyncHDF5Writer] = None,
                   _save_fn: Callable = save_optical_flow_hdf5) -> None:
     """Full DICOM -> HDF5 production for one clip, on ``device`` (``cuda``
     unless the caller passes ``"cpu"``).
 
     The signature and validation follow the JAX package's process_video.
+    ``_clip_override`` (an (N, H, W, 3) uint8 clip) and
+    ``_metadata_override`` drive the pipeline from memory, with no DICOM:
+    the metadata then defaults to no pixel spacing, frame rate or R waves,
+    and the patient id and heart rate are empty and 0. A segmentor mode
+    runs ``segmentor_model`` (models/sam.make_clip_segmentor's callable,
+    or any (N, H, W, 3) uint8 -> (N, H, W) label callable) on the clip.
     With ``_writer`` the write is handed to the write-behind thread
     (process_folder's overlap path); write errors then surface at
     ``_writer.close()``, keyed by ``dcm_path``. ``_save_fn`` receives the
@@ -156,29 +163,32 @@ def process_video(dcm_path: str, save_path: str,
             f"bkgd_comp value must be [WASE, none], got {bkgd_comp}!")
     if bkgd_comp == "WASE":
         raise NotImplementedError(
-            "WASE background compensation needs the segmentor's bkgd "
-            "mask, not ported yet: ROADMAP.md, 'Modules to port' items 5 "
-            "and 7")
+            "WASE background compensation is not ported yet: ROADMAP.md, "
+            "queue 1, item 2")
     if mode in _SEGMENTOR_MODES:
         if segmentor_model is None:
             raise ConfigurationError(
                 f"mode={mode} requires a segmentor model")
-        raise NotImplementedError(
-            f"mode={mode} needs the SAM segmentor, not ported yet: "
-            "ROADMAP.md, 'Modules to port' item 7 (SAM inference)")
-    if mode != "otsu":
+    elif mode != "otsu":
         raise ConfigurationError(
             f"Input for mode must be [A4C, otsu, RVIO_2class, MouseRV_A4C], "
             f"not {mode}.")
     if include_waveforms:
         raise NotImplementedError(
-            "companion waveforms are not ported yet: ROADMAP.md, "
-            "'Modules to port' item 8")
+            "companion waveforms are not ported yet: ROADMAP.md, queue 1, "
+            "item 5")
 
     # --- read + metadata (host) ---
     with trace_stage("dicom_read"):
-        ds, nparr = read_dicom_clip(dcm_path)
-        metadata = extract_metadata(ds, verbose)
+        if _clip_override is not None:
+            nparr = np.asarray(_clip_override)
+            ds = None
+            metadata = dict(_metadata_override or {
+                "pixel_spacing": None, "frame_rate": None,
+                "R_times": None, "R_wave_data_present": False})
+        else:
+            ds, nparr = read_dicom_clip(dcm_path)
+            metadata = extract_metadata(ds, verbose)
 
     pixel_spacing = metadata.get("pixel_spacing")
     frame_rate = metadata.get("frame_rate")
@@ -198,7 +208,8 @@ def process_video(dcm_path: str, save_path: str,
 
     # --- one device copy feeds segmentation AND flow. Echo DICOMs are
     # RGB-coded grayscale almost always: when R==G==B, send a single
-    # channel (luma of R=G=B is the channel) ---
+    # channel (luma of R=G=B is the channel; the segmentor resizes it
+    # before broadcasting it to three) ---
     is_gray = (nparr.ndim == 4 and nparr.shape[-1] == 3
                and np.array_equal(nparr[..., 0], nparr[..., 1])
                and np.array_equal(nparr[..., 0], nparr[..., 2]))
@@ -208,8 +219,13 @@ def process_video(dcm_path: str, save_path: str,
 
     # --- masks (device, batched) ---
     with trace_stage("segmentation"):
-        mask_dict = predict_movie_thres(nparr, verbose=verbose,
-                                        config=config, _gray_dev=gray)
+        if mode in _SEGMENTOR_MODES:
+            mask_dict = predict_movie(nparr, segmentor_model, mode=mode,
+                                      verbose=verbose, config=config,
+                                      _clip_dev=clip_dev)
+        else:
+            mask_dict = predict_movie_thres(nparr, verbose=verbose,
+                                            config=config, _gray_dev=gray)
         if nparr.shape[0] != nframes:  # drop frame-bucket padding
             mask_dict = {k: v[:nframes] for k, v in mask_dict.items()}
 
@@ -230,9 +246,12 @@ def process_video(dcm_path: str, save_path: str,
         echo_gray = gray.to(torch.float16).cpu().numpy()
 
     # --- persist (host) ---
-    patient_id = str(ds.get((0x0010, 0x0020), "") or "")
-    hr = ds.get((0x0018, 0x1088))
-    heart_rate = hr if hr is not None else 0
+    patient_id = ""
+    heart_rate = 0
+    if ds is not None:
+        patient_id = str(ds.get((0x0010, 0x0020), "") or "")
+        hr = ds.get((0x0018, 0x1088))
+        heart_rate = hr if hr is not None else 0
 
     def _write() -> None:
         # duplicate last flow frame to clip length (:599)

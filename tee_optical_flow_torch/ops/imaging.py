@@ -2,7 +2,8 @@
 
 Replaces skimage's rgb2gray and the reference's img2uint8 on the hot path
 (reference calculate_optical_flow.py:399/586) with tensor ops batched over
-frames, on whatever device the tensor lies.
+frames, on whatever device the tensor lies; holds the ImageNet statistics
+the SAM segmentor normalises with.
 """
 
 from __future__ import annotations
@@ -12,6 +13,11 @@ import torch
 
 # ITU-R BT.601 luma weights, matching skimage.color.rgb2gray
 _LUMA = np.asarray([0.2125, 0.7154, 0.0721], dtype=np.float32)
+
+# torchvision ImageNet statistics (reference calculate_optical_flow.py:59),
+# the SAM segmentor's input normalisation
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 def rgb2gray(frames: torch.Tensor) -> torch.Tensor:

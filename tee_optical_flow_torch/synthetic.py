@@ -1,6 +1,6 @@
-"""Synthetic TEE-like sector echo content with analytic ground-truth
-motion (the port's copy of the JAX package's ``make_echo_pair``,
-``echo_sector_masks`` and the oracle helper ``bicubic_sample`` they use).
+"""Synthetic content with analytic ground-truth motion: textured pairs
+and TEE-like sector echo pairs (the port's copy of the JAX package's
+synthetic.py; ``bicubic_sample`` is the port's oracle copy's).
 
 The masks report accuracy over the regions the pipeline consumes: the
 masked analysis reads flow inside segmentation masks (myocardium/wall),
@@ -13,28 +13,19 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-
-def _cubic(v0, v1, v2, v3, x):
-    """Catmull-Rom cubic convolution (the IPOL kernel)."""
-    return v1 + 0.5 * x * (
-        v2 - v0 + x * (2.0 * v0 - 5.0 * v1 + 4.0 * v2 - v3
-                       + x * (3.0 * (v1 - v2) + v3 - v0)))
+from .ops.tvl1_oracle import bicubic_sample
 
 
-def bicubic_sample(img: np.ndarray, sx: np.ndarray, sy: np.ndarray
-                   ) -> np.ndarray:
-    """Sample ``img`` at float coords (sx, sy), clamped borders."""
-    h, w = img.shape
-    x0 = np.floor(sx).astype(np.int64)
-    y0 = np.floor(sy).astype(np.int64)
-    fx = sx - x0
-    fy = sy - y0
-    rows = []
-    for dy in (-1, 0, 1, 2):
-        yc = np.clip(y0 + dy, 0, h - 1)
-        cols = [img[yc, np.clip(x0 + dx, 0, w - 1)] for dx in (-1, 0, 1, 2)]
-        rows.append(_cubic(cols[0], cols[1], cols[2], cols[3], fx))
-    return _cubic(rows[0], rows[1], rows[2], rows[3], fy)
+def make_textured_pair(seed: int, h: int, w: int, shift=(2.0, -3.0)):
+    """Smoothed speckle and its bicubic subpixel global shift by
+    ``shift`` (rows, columns)."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    img = ndimage.gaussian_filter(rng.uniform(size=(h, w)), 3.0)
+    img = (img - img.min()) / (img.max() - img.min()) * 255.0
+    i1 = ndimage.shift(img, shift, order=3, mode="nearest")
+    return img.astype(np.float32), i1.astype(np.float32)
 
 
 def echo_sector_masks(h: int, w: int) -> Dict[str, np.ndarray]:

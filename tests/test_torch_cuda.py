@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1, the block loop with K2, the median and K3)
-against their plain PyTorch versions, on the card. Marked ``cuda``;
+against their plain PyTorch versions, and the SAM segmentor against its
+CPU run, on the card. Marked ``cuda``;
 without a CUDA device every test skips, decided inside the ``card``
 fixture so that every worker collects the same tests.
 
@@ -345,3 +346,68 @@ def test_sor_sweeps_raises_on_refused_launch(card):
            .transpose(1, 2))
     with pytest.raises(ValueError):
         dk.sor_sweeps(*above, bad, **DF_KW)
+
+
+# the SAM segmentor on the card (no kernel of this repository: library
+# convolutions and matrix products), vit_t at its full 1024 width with
+# seeded random weights. Float32 with TF32 off against the CPU: max-abs
+# logit difference under SAM_F32_REL of the logits' range, argmax labels
+# at least SAM_F32_AGREE equal; bfloat16 against float32 on the card: at
+# least SAM_BF16_AGREE of the labels (chip_smoke.py states the same)
+SAM_F32_REL, SAM_F32_AGREE, SAM_BF16_AGREE = 5e-4, 0.998, 0.97
+
+
+@pytest.fixture(scope="module")
+def sam_frames():
+    from tee_optical_flow_torch.synthetic import make_echo_pair
+
+    i0, i1 = make_echo_pair(3, 480, 640)
+    return np.stack([i0, i1]).round().clip(0, 255).astype(np.uint8)
+
+
+def _sam_logits(model, frames, device):
+    from tee_optical_flow_torch.models.sam import preprocess_frames
+
+    with torch.no_grad():
+        x = preprocess_frames(torch.from_numpy(frames).to(device),
+                              model.image_size)
+        return model(x)[0].float().cpu()
+
+
+def test_sam_vit_t_card_matches_cpu(card, sam_frames):
+    from tee_optical_flow_torch.models.registry import build_sam_vit_t
+
+    cpu = build_sam_vit_t(num_classes=3, seed=0, device="cpu")
+    gpu = build_sam_vit_t(num_classes=3, seed=0, device=card)
+    ref = _sam_logits(cpu, sam_frames, "cpu")
+    got = _sam_logits(gpu, sam_frames, card)
+    assert got.shape == ref.shape == (2, 3, 256, 256)
+    rel = float((got - ref).abs().max() / (ref.max() - ref.min()))
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    assert rel < SAM_F32_REL and agree >= SAM_F32_AGREE, (rel, agree)
+    bf16 = build_sam_vit_t(num_classes=3, seed=0, dtype=torch.bfloat16,
+                           device=card)
+    low = _sam_logits(bf16, sam_frames, card)
+    assert float((low.argmax(1) == got.argmax(1)).float().mean()) \
+        >= SAM_BF16_AGREE
+
+
+def test_sam_segmentor_routes_on_card(card, sam_frames):
+    """make_clip_segmentor on the card: the host route, labels_device on
+    an RGB and on a single-channel device clip give the same labels; a
+    clip of three frames at micro-batch 2 (the shifted tail)."""
+    from tee_optical_flow_torch.models.registry import build_sam_vit_t
+    from tee_optical_flow_torch.models.sam import make_clip_segmentor
+
+    seg = make_clip_segmentor(build_sam_vit_t(
+        num_classes=3, seed=0, dtype=torch.bfloat16, device=card),
+        micro_batch=2)
+    gray = np.concatenate([sam_frames, sam_frames[:1]])
+    rgb = np.repeat(gray[..., None], 3, axis=-1)
+    host = seg(rgb)
+    assert host.shape == (3, 480, 640) and host.dtype == np.uint8
+    assert host.max() <= 2
+    for clip in (rgb, gray):
+        dev = seg.labels_device(torch.from_numpy(clip).to(card), (480, 640))
+        assert dev.is_cuda
+        np.testing.assert_array_equal(dev.cpu().numpy(), host)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of tee_optical_flow_torch, nor
-chip_smoke.py, imports JAX or the JAX package."""
+chip_smoke.py or epe_report_torch.py, imports JAX or the JAX package."""
 
 import ast
 import subprocess
@@ -26,11 +26,11 @@ def _modules():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port, and chip_smoke (its main does not run on
-    import), in a fresh interpreter."""
+    """Every module of the port, chip_smoke and epe_report_torch (their
+    mains do not run on import), in a fresh interpreter."""
     code = (
         "import importlib, sys\n"
-        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        f"for name in {_modules()!r} + ['chip_smoke', 'epe_report_torch']:\n"
         "    importlib.import_module(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "epe_report_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text())

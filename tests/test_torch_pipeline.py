@@ -97,6 +97,44 @@ def test_port_matches_jax_run(runs):
     assert np.abs(b).max() > 0.5  # the blob moved: the flow is not all 0
 
 
+def test_in_memory_clip_matches_jax(runs, tmp_path):
+    """_clip_override/_metadata_override: the same in-memory clip through
+    both packages writes the same masks and echo and, within the bounds
+    above, the same flow; with no metadata given the flow is left in px
+    (conversion factor 1) and the patient id and heart rate are empty and
+    0. The clip is the DICOM's own, so the port's in-memory run equals its
+    DICOM run apart from the units."""
+    import h5py
+
+    _, out_dcm, _ = runs
+    clip = _synthetic_clip(np.random.default_rng(7))
+    kw = dict(verbose=False, mode="otsu", no_saliency=True, OF_algo="TVL1",
+              include_waveforms=False, _clip_override=clip)
+    out_t, out_j = str(tmp_path / "t.hdf5"), str(tmp_path / "j.hdf5")
+    t_pipe.process_video("mem.dcm", out_t, None, config=TorchConfig(**REDUCED),
+                         device="cpu", **kw)
+    j_pipe.process_video("mem.dcm", out_j, None, config=JaxConfig(**REDUCED),
+                         **kw)
+    with h5py.File(out_t, "r") as ft, h5py.File(out_j, "r") as fj, \
+            h5py.File(out_dcm, "r") as fd:
+        assert sorted(ft.keys()) == sorted(fj.keys())
+        for key in ("otsu", "echo"):
+            np.testing.assert_array_equal(ft[key][()], fj[key][()])
+            np.testing.assert_array_equal(ft[key][()], fd[key][()])
+        for key in ("nframes", "mode", "frame_rate", "pixel_spacing",
+                    "labels", "ID", "HR", "no_saliency", "units_converted"):
+            np.testing.assert_array_equal(ft["flow"].attrs[key],
+                                          fj["flow"].attrs[key])
+        assert ft["flow"].attrs["ID"] == "" and ft["flow"].attrs["HR"] == 0
+        a = ft["flow"][()].astype(np.float32)
+        b = fj["flow"][()].astype(np.float32)
+        # the DICOM run stored cm/s: 0.05 cm/px at 30 frames/s
+        d = fd["flow"][()].astype(np.float32) / np.float32(1.5)
+    epe = np.hypot(a[..., 0] - b[..., 0], a[..., 1] - b[..., 1])
+    assert epe.mean() < 0.01 and epe.max() < 0.05, (epe.mean(), epe.max())
+    np.testing.assert_allclose(a, d, rtol=0, atol=0.01)
+
+
 def test_config_json_round_trips_between_packages(tmp_path):
     jcfg = JaxConfig(tvl1_epsilon=0.02, frame_bucket=4, **REDUCED)
     path = str(tmp_path / "flow.json")
@@ -129,9 +167,6 @@ def test_unported_paths_are_refused(runs, tmp_path):
     dcm, _, _ = runs
     out = str(tmp_path / "x.hdf5")
     kw = dict(config=TorchConfig(**REDUCED), device="cpu")
-    with pytest.raises(NotImplementedError, match="SAM"):
-        t_pipe.process_video(dcm, out, lambda x: x, mode="A4C", **kw)
-    # WASE needs the segmentor's bkgd mask, so it waits for SAM
     with pytest.raises(NotImplementedError, match="WASE"):
         t_pipe.process_video(dcm, out, lambda x: x, mode="A4C",
                              bkgd_comp="WASE", OF_algo="deepflow", **kw)
