@@ -27,7 +27,14 @@ arguments the TV-L1 and the DeepFlow path handed them):
   * the SAM model itself (phase_sam): float32 logits on the card against
     the CPU (TF32 off), bfloat16 against float32, micro-batch 1 against 4,
     and the segmentor's time per frame in each precision;
-  * the fine-grained saliency map of the clip, card against CPU.
+  * the fine-grained saliency map of the clip, card against CPU;
+  * BASELINE config 4 (phase_cohort): the 480x640 clip through
+    process_video(mode="RVIO_2class", OF_algo="TVL1", bkgd_comp="WASE",
+    include_waveforms=True) with labels from the clip's geometry and
+    synthetic ECG and arterial traces, then the port's dataset from the
+    saved arrays in memory and the 69-value cohort row through both
+    gates; WASE, the histogram packs, the AV centroid and the row held
+    against their plain or CPU versions.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
@@ -37,8 +44,9 @@ time K3 and the block loop under builds with other tiles and steps per
 launch. Exits non-zero, with no result line, when there is no CUDA
 device or a phase fails.
 
-Output: progress lines; then, before the last line, the card's name and
-power limit (nvidia-smi) and one JSON line {"kernels": [...]} with each
+Output: progress lines, each after the set-up headed by the card's name
+and power limit (nvidia-smi); then, before the last line, the card's name
+and power limit and one JSON line {"kernels": [...]} with each
 kernel's launches on its path, error against its plain version, times and
 bound; last, {"ok": true, "device": {...}}.
 """
@@ -114,6 +122,24 @@ SAM_WINDOWS = (0, 16, 32)
 # tests/test_torch_sam.py)
 SAM_F32_ATOL, SAM_F32_REL, SAM_F32_AGREE = 2e-3, 5e-4, 0.998
 SAM_BF16_AGREE, SAM_BF16_REL = 0.97, 0.06
+
+# the config-4 path (WASE, waveforms, the gated cohort row): the clip's
+# 16-frame contraction cycle lasts one second at COHORT_FPS, so the 33
+# frames hold two beats; a synthetic ECG (500 Hz) has an R wave at the
+# start of each contraction, a synthetic arterial trace (125 Hz) a pulse a
+# second. The labels come from the clip's geometry: rv the wall ring, av a
+# disc at the ring centre of radius COHORT_AV_RADIUS x H, background the
+# rest. Bounds: WASE against the float64 host background, COHORT_WASE_ATOL
+# px (float32 sums over the clip in the card's order); the card's row
+# against the CPU's host half, COHORT_ROW_RTOL relative on floats,
+# integers equal; the AV centroid checked on the CPU at COHORT_CENTROID_
+# FRAMES (a frame's centroid depends only on its own mask)
+COHORT_FPS = 16.0
+COHORT_AV_RADIUS = 0.06
+COHORT_BEATS_S = (0.05, 1.05, 2.0)
+COHORT_WASE_ATOL = 1e-5
+COHORT_ROW_RTOL = 1e-5
+COHORT_CENTROID_FRAMES = (0, 30)
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -240,10 +266,15 @@ def is_kernel(event_name, kernel):
 
 
 _T0 = time.perf_counter()
+# the card's name and power limit (nvidia-smi), set by phase_setup: every
+# progress line after it carries them, so each time it prints stands beside
+# the card that measured it
+_CARD = ""
 
 
 def log(msg: str) -> None:
-    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
+    card = f" | {_CARD}" if _CARD else ""
+    print(f"[{time.perf_counter() - _T0:6.1f} s{card}] {msg}", flush=True)
 
 
 def echo_clip(n: int, h: int, w: int, seed: int = 0):
@@ -362,6 +393,7 @@ def k1_active_work(args, *, outer_iters, inner_iters, epsilon, l_t, theta,
 
 
 def phase_setup():
+    global _CARD
     import torch
 
     from tee_optical_flow_torch.ops import cuda_lib
@@ -373,6 +405,7 @@ def phase_setup():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = (smi.stdout.strip().splitlines() or ["nvidia-smi: no output"])[0]
     log(f"card: {card}")
+    _CARD = card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -511,10 +544,10 @@ def phase_k3(captured, calls):
         ms = cuda_ms(lambda: dk.sor_sweeps(*planes, match, **kw), 10)
         plain_ms = cuda_ms(lambda: dk.sor_sweeps_plain(*planes, match, **kw),
                            2)
-        dev = device_launches(lambda: dk.sor_sweeps(*planes, match, **kw),
-                              DEEPFLOW_DEVICE_KERNELS)
         resident = dk.resident(load_library(), h, w)
         want = k3_device_launches(resident, kw["psi_iters"], kw["sor_iters"])
+        dev = device_launches(lambda: dk.sor_sweeps(*planes, match, **kw),
+                              DEEPFLOW_DEVICE_KERNELS, expect=want)
         assert dev == want, (tag, dev, want)
         n_in = len(planes) + (3 if match else 0)
         ops_px = kw["psi_iters"] * (
@@ -569,18 +602,21 @@ def record_tvl1(name, shapes, captured, calls, every=False):
         setattr(tt, name, inner)
 
 
-def device_launches(fn, names, traces=5) -> int:
+def device_launches(fn, names, expect=None, traces=5,
+                    max_traces=20) -> int:
     """Device kernels named in ``names`` that one call of fn() launches,
     counted by torch.profiler: the most that any of ``traces`` traces
     shows, as a trace may lose a kernel's event (one showed none of K1's
-    single launch on an H100, three in a row 11 of K3's 12) and never
-    adds one."""
+    single launch on an H100, three in a row 11 of K3's 12, five in a row
+    59 of the block loop's 60) and never adds one. Given ``expect``, the
+    design's count, tracing stops at the first trace that reaches it, or
+    after ``max_traces``; the caller still asserts the count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     mark = torch.zeros(1, device="cuda")
     counts = []
-    for _ in range(traces):
+    for _ in range(traces if expect is None else max_traces):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # kernels of no interest on each side of the call, so that an
@@ -595,6 +631,8 @@ def device_launches(fn, names, traces=5) -> int:
         counts.append(sum(1 for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and any(is_kernel(e.name, n) for n in names)))
+        if expect is not None and max(counts) >= expect:
+            break
     return max(counts)
 
 
@@ -634,7 +672,7 @@ def phase_k1(captured, calls):
             assert all(bool(torch.isfinite(t).all()) for t in got)
             ms = cuda_ms(lambda: tk.tvl1_outer_loop(*args, **kwe), 5)
             dev = device_launches(lambda: tk.tvl1_outer_loop(*args, **kwe),
-                                  TVL1_DEVICE_KERNELS)
+                                  TVL1_DEVICE_KERNELS, expect=1)
             assert dev == 1, (tag, dev)
             outer, inner = kw["outer_iters"], kw["inner_iters"]
             if eps > 0:
@@ -1147,9 +1185,9 @@ def phase_k2(captured, calls):
             assert err == 0.0, err
         assert all(bool(torch.isfinite(t).all()) for t in got)
         ms = cuda_ms(lambda: tk.tvl1_block_loop(*args, **kwe), 3)
-        dev = device_launches(lambda: tk.tvl1_block_loop(*args, **kwe),
-                              TVL1_DEVICE_KERNELS)
         want = k2_device_launches(lib, outer, inner, eps)
+        dev = device_launches(lambda: tk.tvl1_block_loop(*args, **kwe),
+                              TVL1_DEVICE_KERNELS, expect=want)
         assert dev == want, (tag, dev, want)
         pair_blocks = sum(blocks)
         pair_steps = pair_blocks * inner
@@ -1173,9 +1211,10 @@ def phase_k2(captured, calls):
     clip_ms = clip_dev = 0
     for a, k in captured[K2_SHAPE]:
         clip_ms += cuda_ms(lambda: tk.tvl1_block_loop(*a, **k), 3)
+        want = k2_device_launches(lib, outer, inner, k["epsilon"])
         dev = device_launches(lambda: tk.tvl1_block_loop(*a, **k),
-                              TVL1_DEVICE_KERNELS)
-        assert dev == k2_device_launches(lib, outer, inner, k["epsilon"]), dev
+                              TVL1_DEVICE_KERNELS, expect=want)
+        assert dev == want, (dev, want)
         clip_dev += dev
     out["clip_device_ms"] = clip_ms
     out["clip_device_launches"] = clip_dev
@@ -1195,7 +1234,7 @@ def phase_k2(captured, calls):
     ms = cuda_ms(lambda: tk.tvl1_inner_block(*args, **kw2), 5)
     plain_ms = cuda_ms(lambda: tk.tvl1_inner_block_plain(*args, **kw2), 2)
     dev = device_launches(lambda: tk.tvl1_inner_block(*args, **kw2),
-                          TVL1_DEVICE_KERNELS)
+                          TVL1_DEVICE_KERNELS, expect=sweeps)
     assert dev == sweeps, (dev, sweeps)
     bms, by = bound(16 * 4 * npx, inner * OPS_STEP * npx)
     own = b * k2_own_bytes(h, w, inner, sweeps, use_median=False)
@@ -1397,6 +1436,271 @@ def phase_sam(clip):
                 gflop_per_frame=flops / 1e9, timing=timing)
 
 
+
+def cohort_inputs(h, w, folder, base):
+    """The config-4 path's label callable (from the clip's geometry) and
+    its companion waveforms, written as ``<base>_II.npy`` and
+    ``<base>_ART.npy`` into ``folder`` with numpy only."""
+    from tee_optical_flow_torch.synthetic import echo_sector_masks
+
+    geo = echo_sector_masks(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    av = np.hypot(yy - 0.55 * h, xx - 0.5 * w) < COHORT_AV_RADIUS * h
+    label_map = np.zeros((h, w), np.uint8)
+    label_map[geo["wall"]] = 1
+    label_map[av] = 2
+
+    def labels(frames):
+        return np.broadcast_to(label_map, np.asarray(frames).shape[:3]).copy()
+
+    seconds = CLIP_FRAMES / COHORT_FPS
+    t_ecg = np.arange(int(seconds * 500)) / 500.0
+    ecg = 0.05 * np.sin(2 * np.pi * 0.4 * t_ecg)
+    for beat in COHORT_BEATS_S:
+        c = int(beat * 500)
+        ecg[c - 10:c + 11] += 1.2 * np.hanning(21)
+    t_art = np.arange(int(seconds * 125)) / 125.0
+    art = 80 + 20 * np.sin(2 * np.pi * (t_art - 0.3))
+    np.save(os.path.join(folder, f"{base}_II.npy"), ecg)
+    np.save(os.path.join(folder, f"{base}_ART.npy"), art)
+    shares = np.bincount(label_map.ravel(), minlength=3) / label_map.size
+    return labels, shares
+
+
+@contextlib.contextmanager
+def record_wase(captured):
+    """Wrap the pipeline's wase_background: keep its arguments and its
+    output in ``captured``; restore it on exit."""
+    from tee_optical_flow_torch.flow import pipeline as pl
+
+    inner = pl.wase_background
+
+    def recording(flow_pairs, bkgd):
+        out = inner(flow_pairs, bkgd)
+        captured.update(flow=flow_pairs.clone(), bkgd=bkgd.clone(), out=out)
+        return out
+
+    pl.wase_background = recording
+    try:
+        yield
+    finally:
+        pl.wase_background = inner
+
+
+def phase_cohort(clip, workdir):
+    """BASELINE config 4 at full width: the 33x480x640 clip through
+    process_video(mode="RVIO_2class", OF_algo="TVL1", bkgd_comp="WASE",
+    include_waveforms=True) with the geometry label callable and the
+    synthetic waveforms; the port's dataset from the saved arrays in
+    memory; the cohort row for velocity/rv under the default
+    AnalysisConfig (nbins 1000) through both gates (batch/cohort's
+    _cohort_row, what analyze_cohort_file computes before its plots).
+
+    Checks: 25 K1 calls in the clip; WASE against the float64 host
+    background on the card's own flow and bkgd mask; the card's histogram
+    packs bit-equal to the plain CPU pack on the card's own inputs; the
+    AV centroid at COHORT_CENTROID_FRAMES equal to the CPU's; 69 values
+    with nonzero ECG and arterial sections and n_cycles >= 1 in each
+    gate; the row equal to the CPU's (everything but the centroid
+    labelling recomputed on the CPU, from the card's centroid track).
+    Prints each stage's seconds (log() puts the card's name and power
+    limit on every line)."""
+    import torch
+
+    from tee_optical_flow_torch.analysis import centroid as cen
+    from tee_optical_flow_torch.analysis import histograms as hist
+    from tee_optical_flow_torch.analysis.components import (
+        calculate_comp_magnitude,
+    )
+    from tee_optical_flow_torch.batch import cohort
+    from tee_optical_flow_torch.config import (
+        AnalysisConfig, ProcessingConfig, VisualizationConfig,
+        default_optical_flow_config,
+    )
+    from tee_optical_flow_torch.dataset import OpticalFlowDataset
+    from tee_optical_flow_torch.flow.pipeline import process_video
+    from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+    from tee_optical_flow_torch.ops.histogram import (
+        framewise_hist_pack_group,
+    )
+    from tee_optical_flow_torch.ops.morphology import largest_centroid_series
+    from tee_optical_flow_torch.viz.manager import VisualizationManager
+
+    n, h, w = clip.shape
+    base = "echo_config4"
+    labels, shares = cohort_inputs(h, w, workdir, base)
+    log(f"--- config 4: process_video(mode='RVIO_2class', OF_algo='TVL1', "
+        f"bkgd_comp='WASE', include_waveforms=True) on {n}x{h}x{w} at "
+        f"{COHORT_FPS} frames/s; geometry labels, pixel shares background "
+        f"{shares[0]:.4f}, rv {shares[1]:.4f}, av {shares[2]:.4f}")
+    saved, wase = {}, {}
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        saved["layout"] = optical_flow_layout(flow_arr, echo_gray, mask_dict,
+                                              metadata, waveforms, **kw)
+
+    meta = {"pixel_spacing": SPACING_CM, "frame_rate": COHORT_FPS,
+            "R_times": None, "R_wave_data_present": False}
+    stages = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_wase(wase):
+        process_video(
+            os.path.join(workdir, base + ".dcm"), "unused.hdf5", labels,
+            verbose=False, mode="RVIO_2class", OF_algo="TVL1",
+            no_saliency=True, bkgd_comp="WASE", include_waveforms=True,
+            waveform_folder=workdir, config=default_optical_flow_config(),
+            _clip_override=np.repeat(clip[..., None], 3, axis=-1),
+            _metadata_override=meta, _save_fn=capture)
+    torch.cuda.synchronize()
+    stages["process_video_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"config 4 process_video: {stages['process_video_s']:.3f} s, "
+        f"launches {counts}")
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    layout = saved["layout"]
+    assert {"ecg", "art", "rv", "av", "bkgd"} <= set(layout), list(layout)
+    assert layout["flow"][1]["waveforms_present"]
+
+    # WASE against the float64 host background on the card's own inputs
+    flow64 = wase["flow"].double().cpu()
+    b_sum = wase["bkgd"].double().sum(dim=0).cpu()[..., None]
+    total = (flow64 * b_sum).sum(dim=(1, 2, 3))
+    count = ((flow64 != 0).double() * b_sum).sum(dim=(1, 2, 3))
+    bg64 = torch.where(count > 0, total / count, torch.zeros_like(total))
+    err = float((wase["out"].double().cpu()
+                 - (flow64 - bg64[:, None, None, None])).abs().max())
+    log(f"WASE {tuple(wase['flow'].shape)} with bkgd "
+        f"{tuple(wase['bkgd'].shape)}: backgrounds {float(bg64.min()):.5f} "
+        f"to {float(bg64.max()):.5f} px; max|card - float64 host| = "
+        f"{err:.3g} px (bound {COHORT_WASE_ATOL})")
+    assert err <= COHORT_WASE_ATOL, err
+    del wase
+
+    ds = OpticalFlowDataset(base + ".hdf5", _file_override=layout)
+    assert ds.nframes == n - 2 and ds.waveforms_present
+    cfg, proc = AnalysisConfig(), ProcessingConfig()
+    manager = VisualizationManager(
+        vis_config=VisualizationConfig(show_img=False), proc_config=proc)
+
+    # the row, as analyze_cohort_file computes it before its plots
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sections, _ = cohort._cohort_row(ds, "velocity", "rv", cfg, proc,
+                                     device="cuda")
+    row = cohort._assemble_row(ds, sections)
+    stages["row_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sections, _ = cohort._cohort_row(ds, "velocity", "rv", cfg, proc,
+                                     device="cuda")
+    row = cohort._assemble_row(ds, sections)
+    stages["row_s"] = time.perf_counter() - t0
+
+    # its stages apart, warm, each to a synchronise
+    masked = ds.device_masked_arr("velocity", "rv", device="cuda")
+    nf = ds.nframes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist.calculate_3dhist(masked, nf, nbins=cfg.nbins,
+                          percentile=cfg.percentile)
+    stages["hist_pass_s"] = time.perf_counter() - t0
+    av_dev = torch.from_numpy(np.ascontiguousarray(
+        ds.get_mask("av")[:nf, :, :, 0])).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cents_dev, _, valid_dev = largest_centroid_series(av_dev)
+    torch.cuda.synchronize()
+    stages["centroid_labelling_s"] = time.perf_counter() - t0
+    cents = cen.calc_AV_centroid(ds.get_mask("av"), nf, device="cuda")
+    t0 = time.perf_counter()
+    rad, lng = calculate_comp_magnitude(masked, cents)
+    hist._radlong_hists(rad, lng, nf, cfg.nbins, cfg.perc_lo, cfg.perc_hi)
+    stages["radlong_pass_s"] = time.perf_counter() - t0
+    filt, traces = cohort._cohort_traces(ds, "velocity", "rv", manager, cfg,
+                                         device="cuda")
+    t0 = time.perf_counter()
+    cohort._cohort_sections(ds, filt, traces, manager, proc)
+    stages["gating_and_peaks_s"] = time.perf_counter() - t0
+    log("config 4 stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # the row's shape and content
+    assert len(row) == 69, len(row)
+    ecg_total, art_total = row[15:24], row[24:33]
+    ecg_radlong, art_radlong = row[33:51], row[51:69]
+    for name, sec in (("ecg_total", ecg_total), ("art_total", art_total),
+                      ("ecg_radlong", ecg_radlong),
+                      ("art_radlong", art_radlong)):
+        assert any(v != 0 for v in sec), (name, sec)
+        assert all(np.isfinite(float(v)) for v in sec), (name, sec)
+    cycles = {"ecg": (row[23], row[49], row[50]),
+              "art": (row[32], row[67], row[68])}
+    assert all(c >= 1 for v in cycles.values() for c in v), cycles
+    log(f"config 4 row: 69 values, n_cycles {cycles}; ECG total "
+        f"{[round(float(v), 4) for v in ecg_total]}; ART total "
+        f"{[round(float(v), 4) for v in art_total]}")
+
+    # the centroid on the CPU at a few frames
+    t0 = time.perf_counter()
+    frames = list(COHORT_CENTROID_FRAMES)
+    c_cpu, _, v_cpu = largest_centroid_series(av_dev[frames].cpu())
+    assert torch.equal(c_cpu, cents_dev[frames].cpu()), (c_cpu, cents_dev)
+    assert torch.equal(v_cpu, valid_dev[frames].cpu())
+    log(f"AV centroid at frames {frames} equal on the card and the CPU "
+        f"({c_cpu.tolist()}; {time.perf_counter() - t0:.1f} s of CPU "
+        f"labelling)")
+
+    # the packs: card against the plain CPU version on the card's inputs
+    mag, ang = hist.cart_to_polar(masked[:nf])
+    t0 = time.perf_counter()
+    for name, group, percs in (
+            ("mag/ang", torch.stack([mag, ang]), [[cfg.percentile], [50]]),
+            ("rad/long", torch.stack([rad, lng]),
+             [[cfg.perc_lo, cfg.perc_hi]] * 2)):
+        p = torch.tensor(percs, dtype=torch.float32)
+        got = framewise_hist_pack_group(group, p, nbins=cfg.nbins).cpu()
+        ref = framewise_hist_pack_group(group.cpu(), p, nbins=cfg.nbins)
+        # an empty frame's percentiles are NaN on both (inf * 0)
+        same = (got == ref) | (got.isnan() & ref.isnan())
+        assert bool(same.all()), (name, float((got - ref).abs().max()))
+    log(f"histogram packs (mag/ang, rad/long) bit-equal to the CPU's on the "
+        f"card's inputs ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # the row again, everything but the labelling on the CPU
+    t0 = time.perf_counter()
+    masked_cpu = masked.cpu()
+    _, _, _, _, perc_hi = hist.calculate_3dhist(
+        masked_cpu, nf, nbins=cfg.nbins, percentile=cfg.percentile)
+    from tee_optical_flow_torch.signal.smoother import spectral_smooth
+
+    filt_cpu = spectral_smooth(perc_hi, manager.peak_config.smooth_fraction,
+                               manager.peak_config.pad_len)
+    rad_c, lng_c = calculate_comp_magnitude(masked_cpu, cents)
+    rl = hist._radlong_hists(rad_c, lng_c, nf, cfg.nbins, cfg.perc_lo,
+                             cfg.perc_hi)
+    traces_cpu = (rl["radial"][2], rl["radial"][3], rl["longitudinal"][2],
+                  rl["longitudinal"][3])
+    sec_cpu, _ = cohort._cohort_sections(ds, filt_cpu, traces_cpu, manager,
+                                         proc)
+    row_cpu = cohort._assemble_row(ds, sec_cpu)
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(row, row_cpu)):
+        if isinstance(r, (str, int, np.integer)) or r == 0:
+            assert g == r, (i, g, r)
+        elif r != g:
+            rel = abs(g - r) / abs(r)
+            worst = max(worst, rel)
+            assert rel <= COHORT_ROW_RTOL, (i, g, r)
+    log(f"config 4 row equal to the CPU's (floats within {worst:.3g} "
+        f"relative, bound {COHORT_ROW_RTOL}; {time.perf_counter() - t0:.1f}"
+        f" s on the CPU)")
+    return dict(stages, launches=counts["tvl1_outer_loop"],
+                wase_err_px=err, row=[v if isinstance(v, str) else float(v)
+                                      for v in row])
+
+
 def main() -> int:
     import torch
 
@@ -1442,6 +1746,7 @@ def main() -> int:
                 sam_stages = phase_sam_masks(sam_labels["labels"],
                                              results[name][4]["masks"], dcm,
                                              seg)
+        cohort = phase_cohort(clip, workdir)
     del seg, sam_labels
     k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
@@ -1476,7 +1781,8 @@ def main() -> int:
         levels={f"{coarsest[0]}x{coarsest[1]}": dict(
             k1[(coarsest, 0.01)], eps0=k1[(coarsest, 0.0)])},
         true_flow=records["tvl1_outer_loop"],
-        sam_path_launches=results["SAM"][0]["tvl1_outer_loop"])
+        sam_path_launches=results["SAM"][0]["tvl1_outer_loop"],
+        config4_path_launches=cohort["launches"])
     k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
     for name, source, replaces, launches, path in (
@@ -1508,7 +1814,8 @@ def main() -> int:
                                    "pair_blocks", "k2_alone",
                                    "device_launches", "barrier_us",
                                    "clip_device_ms", "clip_device_launches",
-                                   "true_flow", "sam_path_launches")
+                                   "true_flow", "sam_path_launches",
+                                   "config4_path_launches")
                if k in rec},
         })
     for name, (_, clip_s, solver_s, _, _) in results.items():
@@ -1518,6 +1825,9 @@ def main() -> int:
         f"clean_mask RVIO_2class {sam_stages['clean_mask_RVIO_2class_s']:.3f}"
         f" s = {100 * sam_stages['clean_mask_RVIO_2class_s'] / sam_clip_s:.1f}"
         f"% of the {sam_clip_s:.3f} s clip")
+    log("config 4: " + json.dumps(
+        {k: v for k, v in cohort.items() if k != "row"}))
+    log(f"config 4 row: {json.dumps(cohort['row'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

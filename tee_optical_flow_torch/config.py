@@ -1,10 +1,14 @@
-"""The flow-production configuration of the PyTorch port.
+"""The configurations of the PyTorch port.
 
-A copy of the JAX package's ``OpticalFlowCalculationConfig`` and its JSON
-helpers (``config.py:28-96,206-302,442`` there). The fields, names and
-defaults are the same, so a JSON written by the JAX package's ``to_json``
-loads here field for field, and back. TV-L1 has no learned weights: this
-configuration is the whole state the flow path carries across.
+Copies of the JAX package's ``OpticalFlowCalculationConfig``, its
+analysis-side configurations (``CardiacCycleConfig``,
+``VisualizationConfig``, ``ProcessingConfig``, ``PeakDetectionConfig``,
+``AnalysisConfig``, ``CardiacCycleMethodConfig``), their preset factories
+and the JSON helpers (``config.py:28-203,206-302,402-443`` there). The
+fields, names and defaults are the same, so a JSON written by the JAX
+package's ``to_json`` loads here field for field, and back. TV-L1 has no
+learned weights: these configurations are the whole state the flow and
+analysis paths carry across.
 
 ``tvl1_use_pallas`` keeps its name for that compatibility. In the port it
 selects the TPU reference's per-size choice of stopping rule
@@ -15,8 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass, fields, is_dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, List, Literal, Optional, Tuple
 
 from .exceptions import ConfigurationError
 
@@ -46,13 +50,17 @@ _RETIRED_KEYS = {
 
 def _fromdict(cls: type, data: dict) -> Any:
     kwargs = {}
-    known = {f.name for f in fields(cls)}
+    known = {f.name: f for f in fields(cls)}
     for key, value in data.items():
         if key in _RETIRED_KEYS and key not in known:
             raise ConfigurationError(
                 f"config key '{key}': {_RETIRED_KEYS[key]}")
         if key not in known:
             continue  # forward compatible: ignore unknown keys
+        ftype = known[key].type
+        if (isinstance(ftype, str) and ftype.startswith("Tuple")
+                and isinstance(value, list)):
+            value = tuple(value)  # JSON has no tuples
         kwargs[key] = value
     return cls(**kwargs)
 
@@ -83,6 +91,114 @@ class _JsonMixin:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# analysis-side configs (parity with reference optical_flow/config.py)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CardiacCycleConfig(_JsonMixin):
+    """Cardiac-cycle detection knobs (reference config.py:12-29)."""
+
+    smooth_fraction: float = 0.2
+    pad_len: int = 20
+    sys_thres: float = 0.9
+    dia_thres: float = 0.5
+    rr_sys_ratio: float = 0.333
+    sys_extension: int = 2
+    t_peak_thres: float = 0.5
+    t_min_dist: int = 20
+    rr_search_range: List[float] = field(default_factory=lambda: [0.2, 0.75])
+    low_peak_thres: float = 0.9
+    low_min_dist: int = 50
+    high_peak_thres: float = 0.9
+    high_min_dist: int = 50
+    sys_upstroke_multiplier: int = 2
+    sys_upstroke_offset: int = 5
+
+
+@dataclass
+class VisualizationConfig(_JsonMixin):
+    """Plotting / video knobs (reference config.py:32-59)."""
+
+    save_dir: Optional[str] = None
+    show_plot: bool = False
+    show_img: bool = False
+    save_cc_plot: bool = False
+    nbins: int = 1000
+    invert_rad_yaxis: bool = False
+    invert_long_yaxis: bool = False
+    fps: int = 30
+    colormap_mag: str = "hot"
+    colormap_ang: str = "viridis"
+    colormap_rad: str = "bwr"
+    colormap_long: str = "BrBG"
+    show_peak_annotations: bool = True
+    peak_marker_size: int = 8
+    peak_marker_style: str = "+"
+    peak_annotation_fontsize: int = 8
+    peak_annotation_offset: Tuple[float, float] = (1.5, 1.5)
+    radial_peak_color: str = "r"
+    longitudinal_peak_color: str = "b"
+    systolic_peak_color: str = "r"
+    diastolic_peak_color: str = "b"
+    show_sysdia_shading: bool = False
+    true_sysdia_mode: Literal["radial", "longitudinal"] = "radial"
+    print_report: bool = False
+    return_statistics: bool = False
+
+
+@dataclass
+class ProcessingConfig(_JsonMixin):
+    """Data-processing knobs (reference config.py:62-71)."""
+
+    recalculate: bool = True
+    verbose: bool = False
+    sampling_rate: Optional[int] = None
+    ecg_sampling_rate: int = 500
+    art_sampling_rate: int = 125
+    cvp_sampling_rate: int = 125
+    pap_sampling_rate: int = 125
+
+
+@dataclass
+class PeakDetectionConfig(_JsonMixin):
+    """Peak detection knobs (reference config.py:74-82)."""
+
+    peak_thres: float = 0.2
+    min_dist: int = 5
+    pick_peak_by_subset: bool = True
+    show_all_peaks: bool = False
+    smooth_fraction: float = 0.3
+    pad_len: int = 20
+
+
+@dataclass
+class AnalysisConfig(_JsonMixin):
+    """Histogram / statistics knobs (reference config.py:85-95)."""
+
+    percentile: int = 99
+    perc_lo: int = 1
+    perc_hi: int = 99
+    av_filter_flag: bool = True
+    av_savgol_window: int = 10
+    av_savgol_poly: int = 4
+    print_report: bool = False
+    return_value: bool = True
+    nbins: int = 1000
+
+
+@dataclass
+class CardiacCycleMethodConfig(_JsonMixin):
+    """Cycle-method selection (reference config.py:98-105)."""
+
+    method: Literal["angle", "area", "ecg", "ecg_lazy", "metadata",
+                    "arterial"] = "angle"
+    label: str = "rv_inner"
+    true_sysdia_mode: Literal["radial", "longitudinal"] = "radial"
+    waveform_data: Optional[object] = None
+    show_sysdia: bool = False
 
 
 @dataclass
@@ -150,6 +266,52 @@ class OpticalFlowCalculationConfig(_JsonMixin):
     bucket_shapes: bool = True
     frame_bucket: int = 8
     spatial_bucket: int = 32
+
+
+# ---------------------------------------------------------------------------
+# preset factories (parity with reference config.py:108-193)
+# ---------------------------------------------------------------------------
+
+def default_cardiac_cycle_config() -> CardiacCycleConfig:
+    return CardiacCycleConfig()
+
+
+def default_visualization_config() -> VisualizationConfig:
+    return VisualizationConfig()
+
+
+def default_processing_config() -> ProcessingConfig:
+    return ProcessingConfig()
+
+
+def default_peak_detection_config() -> PeakDetectionConfig:
+    return PeakDetectionConfig()
+
+
+def default_analysis_config() -> AnalysisConfig:
+    return AnalysisConfig()
+
+
+def ecg_gated_config() -> CardiacCycleConfig:
+    return CardiacCycleConfig(smooth_fraction=0.2, pad_len=20,
+                              rr_sys_ratio=0.333)
+
+
+def arterial_gated_config() -> CardiacCycleConfig:
+    return CardiacCycleConfig(
+        smooth_fraction=0.2, pad_len=20,
+        low_peak_thres=0.9, low_min_dist=50,
+        high_peak_thres=0.9, high_min_dist=50,
+    )
+
+
+def angle_detection_config() -> CardiacCycleConfig:
+    return CardiacCycleConfig(smooth_fraction=0.2, pad_len=20)
+
+
+def area_detection_config() -> CardiacCycleConfig:
+    return CardiacCycleConfig(smooth_fraction=0.3, pad_len=20, sys_thres=0.9,
+                              dia_thres=0.5)
 
 
 def default_optical_flow_config() -> OpticalFlowCalculationConfig:

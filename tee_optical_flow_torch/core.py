@@ -7,6 +7,10 @@ unpadded one away from the padded edge). On the TPU bucketing bounded jit
 recompiles; the port keeps it because it decides the solver's shapes, and
 with them the results.
 
+``fma32`` rounds ``a*b + c`` once, as XLA's CPU backend does where the JAX
+package writes ``a*b + c*d``; ``sqrt32`` is the correctly rounded float32
+square root on every device.
+
 ``resolve_device`` is the port's rule for entry points: they run on
 ``cuda`` unless the caller asks for ``cpu``, and they raise when no CUDA
 device is present and the CPU was not asked for.
@@ -23,9 +27,9 @@ import torch.nn.functional as F
 from .utils.helpers import pad_to_multiple
 
 __all__ = [
-    "as_device_tensor", "bucketed_frame_count", "bucketed_spatial",
+    "as_device_tensor", "bucketed_frame_count", "bucketed_spatial", "fma32",
     "pad_clip_frames", "pad_spatial_edge", "pad_to_multiple",
-    "resolve_device",
+    "resolve_device", "sqrt32",
 ]
 
 
@@ -51,6 +55,25 @@ def as_device_tensor(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """float32 ``a*b + c`` with one rounding. XLA's CPU backend contracts
+    the JAX package's float32 ``a*b + c*d`` into ``fma(a, b, c*d)`` (the
+    first product fused), so this gives its bits: the product of two
+    float32 is exact in float64, and the float64 sum is rounded to float32
+    (a double rounding, which differs from a true fma only when the
+    float64 sum falls exactly halfway between two float32 values)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root: torch's float32 sqrt on the
+    CPU can be an ulp off (XLA's and CUDA's are IEEE); the float64 root of
+    a float32, rounded to float32, is the correctly rounded one."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def bucketed_frame_count(n: int, frame_bucket: int) -> int:

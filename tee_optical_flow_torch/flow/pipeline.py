@@ -9,11 +9,16 @@ Parity with reference process_video (calculate_optical_flow.py:478-625):
   * TV-L1 and DeepFlow: all N-1 pairs are solved as one batch
     (ops/tvl1.py, ops/deepflow.py), with the primal-dual loops and the SOR
     solve as CUDA kernels on a card;
+  * WASE background compensation: the reference subtracts, per flow frame,
+    the mean of the frame's flow over every nonzero entry of the *entire*
+    clip's background mask stack (calculate_optical_flow.py:649-659);
+    algebraically that is sum(flow * B)/count with B = sum_n bkgd_n, which
+    ``wase_background`` computes on the device from the segmentor path's
+    device 'bkgd' mask (O(HW) per pair instead of O(NHW));
+  * companion waveforms (io/waveforms.py) loaded beside the clip and
+    saved with it, unless neither ECG nor ART is valid;
   * schema quirks preserved: duplicate-last-flow-frame (:599), flow scaled
     by pixel_spacing*frame_rate (:600), echo stored as rgb2gray floats.
-
-Not ported yet, and refused with NotImplementedError rather than run
-quietly: WASE background compensation and companion waveforms.
 """
 
 from __future__ import annotations
@@ -35,16 +40,49 @@ from ..core import (
 from ..exceptions import ConfigurationError, OpticalFlowCalculationError
 from ..io.dicom import extract_metadata, read_dicom_clip
 from ..io.hdf5 import save_optical_flow_hdf5
+from ..io.waveforms import load_all_waveforms
 from ..ops.deepflow import deepflow_clip_flow
 from ..ops.imaging import gray_from_clip, img2uint8
+from ..ops.morphology import unpack_mask_bits
 from ..ops.saliency import fine_grained_saliency
 from ..ops.tvl1 import tvl1_clip_flow
 from ..utils import safe_makedir, trace_stage
-from .segment import predict_movie, predict_movie_thres
+from .segment import (
+    clean_mask_device, masks_to_host, predict_movie_thres, segment_labels,
+)
 
 logger = logging.getLogger(__name__)
 
 _SEGMENTOR_MODES = ("A4C", "RVIO_2class", "MouseRV_A4C")
+
+
+def wase_background(flow_pairs: torch.Tensor, bkgd: torch.Tensor
+                    ) -> torch.Tensor:
+    """Per-pair scalar background = mean of the flow over the nonzero
+    entries of the whole clip's bkgd masks (reference semantics, see the
+    module docstring), subtracted from each pair, on the flow's device.
+
+    flow_pairs: (P, H, W, 2) float32; bkgd: (N, H, W, 2) bool (the JAX
+    package's ``_wase_background``), or (N, H, W), one channel for both
+    flow channels (the pipeline's device mask). The sums are float32, as
+    in the JAX package, in torch's order."""
+    b_sum = bkgd.to(flow_pairs.device, torch.float32).sum(dim=0)
+    if b_sum.ndim == 2:
+        b_sum = b_sum[..., None]
+    nz = (flow_pairs != 0).to(torch.float32)
+    total = (flow_pairs * b_sum).sum(dim=(1, 2, 3))
+    count = (nz * b_sum).sum(dim=(1, 2, 3))
+    bg = torch.where(count > 0, total / count, torch.zeros_like(total))
+    return flow_pairs - bg[:, None, None, None]
+
+
+def wase_background_packed(flow_pairs: torch.Tensor, bkgd_bits,
+                           nhw: Tuple[int, int, int]) -> torch.Tensor:
+    """wase_background with the (N, H, W) single-channel bkgd mask given
+    bit-packed (uint8, numpy packbits order; the JAX package's
+    ``_wase_background_packed``)."""
+    bkgd = torch.from_numpy(unpack_mask_bits(bkgd_bits, nhw))
+    return wase_background(flow_pairs, bkgd)
 
 
 def compute_clip_flow(images, of_algo: str = "TVL1",
@@ -139,11 +177,16 @@ def process_video(dcm_path: str, save_path: str,
     and the patient id and heart rate are empty and 0. A segmentor mode
     runs ``segmentor_model`` (models/sam.make_clip_segmentor's callable,
     or any (N, H, W, 3) uint8 -> (N, H, W) label callable) on the clip.
-    With ``_writer`` the write is handed to the write-behind thread
-    (process_folder's overlap path); write errors then surface at
-    ``_writer.close()``, keyed by ``dcm_path``. ``_save_fn`` receives the
-    arguments of ``save_optical_flow_hdf5``, which it defaults to; a check
-    can pass its own to inspect the arrays where h5py is absent.
+    ``bkgd_comp="WASE"`` (segmentor modes only) subtracts each pair's
+    background flow (``wase_background``) before the unit conversion.
+    ``include_waveforms`` loads the clip's ``<base>_II/_ART/_ABP/_PAP/_CVP
+    .npy`` companions from ``waveform_folder`` (io/waveforms.py) and saves
+    them, unless neither ECG nor ART is valid. With ``_writer`` the write
+    is handed to the write-behind thread (process_folder's overlap path);
+    write errors then surface at ``_writer.close()``, keyed by
+    ``dcm_path``. ``_save_fn`` receives the arguments of
+    ``save_optical_flow_hdf5``, which it defaults to; a check can pass its
+    own to inspect the arrays where h5py is absent.
     """
     if config is None:
         config = default_optical_flow_config()
@@ -161,10 +204,6 @@ def process_video(dcm_path: str, save_path: str,
     if bkgd_comp not in ("WASE", "none"):
         raise OpticalFlowCalculationError(
             f"bkgd_comp value must be [WASE, none], got {bkgd_comp}!")
-    if bkgd_comp == "WASE":
-        raise NotImplementedError(
-            "WASE background compensation is not ported yet: ROADMAP.md, "
-            "queue 1, item 2")
     if mode in _SEGMENTOR_MODES:
         if segmentor_model is None:
             raise ConfigurationError(
@@ -173,10 +212,6 @@ def process_video(dcm_path: str, save_path: str,
         raise ConfigurationError(
             f"Input for mode must be [A4C, otsu, RVIO_2class, MouseRV_A4C], "
             f"not {mode}.")
-    if include_waveforms:
-        raise NotImplementedError(
-            "companion waveforms are not ported yet: ROADMAP.md, queue 1, "
-            "item 5")
 
     # --- read + metadata (host) ---
     with trace_stage("dicom_read"):
@@ -220,9 +255,13 @@ def process_video(dcm_path: str, save_path: str,
     # --- masks (device, batched) ---
     with trace_stage("segmentation"):
         if mode in _SEGMENTOR_MODES:
-            mask_dict = predict_movie(nparr, segmentor_model, mode=mode,
-                                      verbose=verbose, config=config,
-                                      _clip_dev=clip_dev)
+            # predict_movie's halves, keeping the device masks for WASE
+            labels, label_dev = segment_labels(nparr, segmentor_model,
+                                               _clip_dev=clip_dev)
+            masks_dev = clean_mask_device(labels, mode, config=config,
+                                          device=label_dev)
+            mask_dict = masks_to_host(masks_dev, verbose)
+            bkgd_dev = masks_dev["bkgd"][:nframes]
         else:
             mask_dict = predict_movie_thres(nparr, verbose=verbose,
                                             config=config, _gray_dev=gray)
@@ -236,14 +275,30 @@ def process_video(dcm_path: str, save_path: str,
 
     # --- flow (device, all pairs at once) ---
     with trace_stage("optical_flow"):
-        # padded (last, last) pairs solve to zero flow; slice them off
+        # padded (last, last) pairs solve to zero flow; slice them (and
+        # the padded echo frames) off before WASE sees the arrays
         flow_pairs = compute_clip_flow(images, OF_algo, config)[:nframes - 1]
         gray = gray[:nframes]
+        if bkgd_comp == "WASE":
+            # the segmentor path's bkgd mask, still on the device (otsu
+            # mode refuses WASE above)
+            flow_pairs = wase_background(flow_pairs, bkgd_dev)
         # unit conversion (:600) and the schema's float16 on the device:
         # half the bytes cross to the host
         cf = torch.tensor(conversion_factor, dtype=torch.float32, device=dev)
         flow_host = (flow_pairs * cf).to(torch.float16).cpu().numpy()
         echo_gray = gray.to(torch.float16).cpu().numpy()
+
+    # --- waveforms (host) ---
+    waveform_results: Dict = {}
+    if include_waveforms:
+        with trace_stage("waveforms"):
+            waveform_results = load_all_waveforms(
+                dcm_path, waveform_folder, config, verbose)
+        ecg_exists = waveform_results.get("ecg", (False, None))[0]
+        art_exists = waveform_results.get("art", (False, None))[0]
+        if not ecg_exists and not art_exists:
+            include_waveforms = False
 
     # --- persist (host) ---
     patient_id = ""
@@ -259,8 +314,8 @@ def process_video(dcm_path: str, save_path: str,
         _save_fn(
             save_path, flow_arr, echo_gray, mask_dict,
             {**metadata, "nframes": nframes},
-            {}, mode=mode, no_saliency=no_saliency,
-            include_waveforms=False, patient_id=patient_id,
+            waveform_results, mode=mode, no_saliency=no_saliency,
+            include_waveforms=include_waveforms, patient_id=patient_id,
             heart_rate=heart_rate,
             sampling_rates={"ecg": config.ecg_sampling_rate,
                             "art": config.art_sampling_rate,

@@ -11,11 +11,13 @@
     moving average (the reverse order of clean_mask, as in the reference,
     whose two paths differ so);
   * ``predict_movie``: runs a segmentor over the clip and cleans the
-    labels.
+    labels. The pipeline runs its two halves (``segment_labels``, then
+    ``clean_mask_device``) itself, to keep the device masks for WASE.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, Dict, Optional
 
@@ -43,15 +45,16 @@ LABEL_MAPS = {
 }
 
 
-def clean_mask(arr, mode: str = "A4C", verbose: bool = False,
-               config: Optional[OpticalFlowCalculationConfig] = None,
-               device=None) -> Optional[Dict[str, np.ndarray]]:
-    """(N, H, W) integer label movie -> {label: (N, H, W, 2) bool} +
-    'bkgd', or None for an unknown mode.
+def clean_mask_device(arr, mode: str = "A4C",
+                      config: Optional[OpticalFlowCalculationConfig] = None,
+                      device=None) -> Optional[Dict[str, torch.Tensor]]:
+    """(N, H, W) integer label movie -> {label: (N, H, W) bool tensor} +
+    'bkgd', on the device, or None for an unknown mode.
 
     ``arr`` is a tensor (cleaned on its device) or a host array (sent to
-    ``device``, ``cuda`` by default). Every label is cleaned before any
-    mask leaves the device, and the masks come back bit-packed."""
+    ``device``, ``cuda`` by default). Per label: the temporal moving
+    average, then fill-holes + remove-small-objects per frame; 'bkgd' is
+    NOT(union)."""
     if config is None:
         config = default_optical_flow_config()
     label_map = LABEL_MAPS.get(mode)
@@ -60,25 +63,39 @@ def clean_mask(arr, mode: str = "A4C", verbose: bool = False,
                      list(LABEL_MAPS.keys()))
         return None
     labels = as_device_tensor(arr, device)
-    cleans = []
-    for value in label_map.values():
+    masks: Dict[str, torch.Tensor] = {}
+    for name, value in label_map.items():
         avg = moving_avg_mask(labels == value, n=config.moving_avg_window,
                               threshold=config.moving_avg_threshold)
-        cleans.append(clean_binary_stack(avg, min_size=config.min_mask_size))
-    union = cleans[0]
-    for clean in cleans[1:]:
-        union = union | clean
-    shape = tuple(cleans[0].shape)
-    packs = [pack_mask_bits(c) for c in cleans] + [pack_mask_bits(~union)]
+        masks[name] = clean_binary_stack(avg, min_size=config.min_mask_size)
+    masks["bkgd"] = ~functools.reduce(torch.logical_or, masks.values())
+    return masks
 
+
+def masks_to_host(masks: Dict[str, torch.Tensor], verbose: bool = False
+                  ) -> Dict[str, np.ndarray]:
+    """clean_mask_device's masks -> {label: (N, H, W, 2) bool} on the host:
+    each mask crosses bit-packed and is broadcast to two channels, so that
+    it multiplies the flow directly."""
     mask_dict: Dict[str, np.ndarray] = {}
-    for name, pack in zip(list(label_map) + ["bkgd"], packs):
-        mask = unpack_mask_bits(pack, shape)
-        mask_dict[name] = np.repeat(mask[:, :, :, None], 2, axis=3)
+    for name, mask in masks.items():
+        host = unpack_mask_bits(pack_mask_bits(mask), tuple(mask.shape))
+        mask_dict[name] = np.repeat(host[:, :, :, None], 2, axis=3)
         if verbose and name != "bkgd":
             logger.debug("For mask %s, produced cleaned mask arr of shape %s",
                          name, mask_dict[name].shape)
     return mask_dict
+
+
+def clean_mask(arr, mode: str = "A4C", verbose: bool = False,
+               config: Optional[OpticalFlowCalculationConfig] = None,
+               device=None) -> Optional[Dict[str, np.ndarray]]:
+    """(N, H, W) integer label movie -> {label: (N, H, W, 2) bool} +
+    'bkgd', or None for an unknown mode: clean_mask_device, then
+    masks_to_host. Every label is cleaned before any mask leaves the
+    device."""
+    masks = clean_mask_device(arr, mode, config=config, device=device)
+    return None if masks is None else masks_to_host(masks, verbose)
 
 
 def predict_movie_thres(nparr: np.ndarray, verbose: bool = False,
@@ -108,6 +125,28 @@ def predict_movie_thres(nparr: np.ndarray, verbose: bool = False,
     return {"otsu": np.repeat(avg[:, :, :, None], 2, axis=3)}
 
 
+def segment_labels(nparr: np.ndarray, segmentor: Callable[[np.ndarray],
+                                                          np.ndarray],
+                   _clip_dev: Optional[torch.Tensor] = None, device=None):
+    """The segmentor's (N, H, W) labels of a clip, and the device to clean
+    them on.
+
+    When the segmentor has ``labels_device`` (make_clip_segmentor's does)
+    and the pipeline hands over its device clip as ``_clip_dev``, the
+    labels are made on the device and never cross to the host. Otherwise
+    the segmentor is called on the host frames, so any such callable
+    works, and its labels are cleaned on ``_clip_dev``'s device, or
+    ``device``."""
+    device_fn = getattr(segmentor, "labels_device", None)
+    if device_fn is not None and _clip_dev is not None:
+        h, w = np.asarray(nparr).shape[1:3]
+        return device_fn(_clip_dev, (h, w)), device
+    labels = np.asarray(segmentor(np.asarray(nparr)))
+    if _clip_dev is not None:
+        device = _clip_dev.device
+    return labels, device
+
+
 def predict_movie(nparr: np.ndarray, segmentor: Callable[[np.ndarray],
                                                           np.ndarray],
                   mode: str = "A4C", verbose: bool = False,
@@ -115,20 +154,7 @@ def predict_movie(nparr: np.ndarray, segmentor: Callable[[np.ndarray],
                   _clip_dev: Optional[torch.Tensor] = None, device=None
                   ) -> Optional[Dict[str, np.ndarray]]:
     """Run a clip segmentor ((N, H, W, 3) uint8 -> (N, H, W) labels) and
-    clean its labels (reference calculate_optical_flow.py:215-241).
-
-    When the segmentor has ``labels_device`` (make_clip_segmentor's does)
-    and the pipeline hands over its device clip as ``_clip_dev``, the
-    labels are made and cleaned on the device and never cross to the
-    host. Otherwise the segmentor is called on the host frames, so any
-    such callable works, and its labels are cleaned on ``_clip_dev``'s
-    device, or ``device``."""
-    device_fn = getattr(segmentor, "labels_device", None)
-    if device_fn is not None and _clip_dev is not None:
-        h, w = np.asarray(nparr).shape[1:3]
-        labels = device_fn(_clip_dev, (h, w))
-    else:
-        labels = np.asarray(segmentor(np.asarray(nparr)))
-        if _clip_dev is not None:
-            device = _clip_dev.device
+    clean its labels (reference calculate_optical_flow.py:215-241); the
+    routes of segment_labels."""
+    labels, device = segment_labels(nparr, segmentor, _clip_dev, device)
     return clean_mask(labels, mode, verbose, config=config, device=device)

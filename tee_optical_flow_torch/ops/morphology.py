@@ -8,7 +8,10 @@ Every op runs batched over the frame axis, on the device the masks lie on:
     is exact for components whose geodesic diameter is at most 2*(H+W);
   * component sizes by scatter-adds keyed by root label;
   * fill-holes as border reachability on the complement;
-  * the temporal moving-average mask as a cumsum (reference :90-111).
+  * the temporal moving-average mask as a cumsum (reference :90-111);
+  * per-frame largest-component centroids and label-1 areas for the
+    analysis (reference analysis.py:18-86, cardiac_cycle_detection.py:
+    161-172), from one labelling of the whole stack.
 
 Connectivity conventions match the reference's defaults: ``label`` uses
 8-connectivity (skimage 2-D default), ``remove_small_objects`` and
@@ -142,6 +145,80 @@ def clean_binary_stack(mask_stack: torch.Tensor, min_size: int = 500
     (reference clean_mask inner loop, calculate_optical_flow.py:163-167)."""
     return remove_small_objects(binary_fill_holes(mask_stack),
                                 min_size=min_size, connectivity=1)
+
+
+def _as_stack(mask: torch.Tensor):
+    """(N, H, W) bool view of a (H, W) or (N, H, W) mask, and whether it
+    was one frame."""
+    squeeze = mask.ndim == 2
+    mask = mask.to(torch.bool)
+    return (mask[None] if squeeze else mask), squeeze
+
+
+def component_areas_and_centroids(mask: torch.Tensor):
+    """(area, centroid_row, centroid_col, valid) of the *largest* component
+    (reference find_correct_centroid, analysis.py:18-36), per frame of a
+    (H, W) or (N, H, W) mask.
+
+    The largest component is the first root label of the largest size
+    (argmax's first hit, as in the JAX package); the centroid is the
+    float32 sum of its row (column) indices over its pixel count.
+    ``valid`` is False for an empty mask; callers apply the reference's
+    carry-forward policy on host.
+    """
+    mask, squeeze = _as_stack(mask)
+    n, h, w = mask.shape
+    big = h * w
+    ids = connected_components(mask, connectivity=2)
+    sizes = component_sizes(ids)
+    sizes[:, big] = 0
+    root = torch.argmax(sizes, dim=1)
+    area = torch.gather(sizes, 1, root[:, None])[:, 0]
+    sel = (ids == root[:, None, None].to(ids.dtype)) & mask
+    cnt = torch.clamp_min(sel.sum(dim=(1, 2)), 1)
+    rows = torch.arange(h, dtype=torch.float32,
+                        device=mask.device)[:, None].expand(h, w)
+    cols = torch.arange(w, dtype=torch.float32,
+                        device=mask.device)[None, :].expand(h, w)
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    crow = torch.where(sel, rows, zero).sum(dim=(1, 2)) / cnt
+    ccol = torch.where(sel, cols, zero).sum(dim=(1, 2)) / cnt
+    valid = mask.any(dim=2).any(dim=1)
+    if squeeze:
+        return area[0], crow[0], ccol[0], valid[0]
+    return area, crow, ccol, valid
+
+
+def label_first_area(mask: torch.Tensor):
+    """Area of the component containing the first foreground pixel in scan
+    order, i.e. skimage label 1, whose area the reference's AreaDetector
+    reads via ``props[0].area`` (cardiac_cycle_detection.py:161-172), per
+    frame of a (H, W) or (N, H, W) mask. Returns (area, valid)."""
+    mask, squeeze = _as_stack(mask)
+    n, h, w = mask.shape
+    big = h * w
+    ids = connected_components(mask, connectivity=2)
+    # smallest root label == first-scanned component
+    first_root = ids.reshape(n, big).min(dim=1).values
+    sizes = component_sizes(ids)
+    area = torch.gather(sizes, 1, torch.clamp(first_root, 0, big)[:, None]
+                        .to(torch.int64))[:, 0]
+    area = torch.where(first_root < big, area, torch.zeros_like(area))
+    valid = mask.any(dim=2).any(dim=1)
+    return (area[0], valid[0]) if squeeze else (area, valid)
+
+
+def largest_centroid_series(mask_stack: torch.Tensor):
+    """Per-frame largest-component centroids over a (N, H, W) stack.
+    Returns (centroids (N, 2) as (row, col), areas (N,), valid (N,))."""
+    area, crow, ccol, valid = component_areas_and_centroids(mask_stack)
+    return torch.stack([crow, ccol], dim=1), area, valid
+
+
+def first_area_series(mask_stack: torch.Tensor):
+    """Per-frame skimage-label-1 areas over a (N, H, W) stack: (areas,
+    valid)."""
+    return label_first_area(mask_stack)
 
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)

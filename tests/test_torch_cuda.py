@@ -411,3 +411,60 @@ def test_sam_segmentor_routes_on_card(card, sam_frames):
         dev = seg.labels_device(torch.from_numpy(clip).to(card), (480, 640))
         assert dev.is_cuda
         np.testing.assert_array_equal(dev.cpu().numpy(), host)
+
+
+# --- the cohort analysis's device passes (plain PyTorch, no kernel) -------
+
+def _cohort_inputs(shape=(6, 120, 160), seed=0):
+    """Masked unit-scale flow (frame 1 empty) and an AV-like mask stack."""
+    rng = np.random.default_rng(seed)
+    n, h, w = shape
+    flow = rng.normal(scale=2.0, size=(n, h, w, 2)).astype(np.float32)
+    keep = rng.uniform(size=(n, h, w)) < 0.6
+    keep[1] = False
+    yy, xx = np.mgrid[0:h, 0:w]
+    av = np.stack([np.hypot(yy - h / 2 - k, xx - w / 2) < 12 + k
+                   for k in range(n)])
+    av[2, :10, :10] = True  # a second, smaller component
+    return flow * keep[..., None], av
+
+
+def test_cohort_passes_card_match_cpu(card):
+    """The histogram pack (bit-equal: whole-number counts, IEEE division,
+    the fused interpolation rounded once in float64), the magnitude and
+    the radial / longitudinal components (bit-equal), the AV centroids
+    (bit-equal: whole-number sums under 2**24) and WASE (float32 sums in
+    another order: 1e-6 px) on the card against the same calls on the
+    CPU."""
+    from tee_optical_flow_torch.analysis.components import (
+        calculate_comp_magnitude,
+    )
+    from tee_optical_flow_torch.analysis.histograms import cart_to_polar
+    from tee_optical_flow_torch.flow.pipeline import wase_background
+    from tee_optical_flow_torch.ops.histogram import (
+        framewise_hist_pack_group,
+    )
+    from tee_optical_flow_torch.ops.morphology import largest_centroid_series
+
+    flow, av = _cohort_inputs()
+    cpu = torch.from_numpy(flow)
+    gpu = cpu.to(card)
+    for a, b in zip(cart_to_polar(gpu)[:1], cart_to_polar(cpu)[:1]):
+        assert torch.equal(a.cpu(), b)
+    cents = np.array([[60.3, 80.7]] * flow.shape[0])
+    for a, b in zip(calculate_comp_magnitude(gpu, cents),
+                    calculate_comp_magnitude(cpu, cents)):
+        assert torch.equal(a.cpu(), b)
+    p = torch.tensor([[1.0, 99.0], [5.0, 50.0]])
+    group = torch.stack([cpu[..., 0], cpu[..., 1]])
+    # an empty frame's percentiles are NaN on both (inf * 0)
+    torch.testing.assert_close(
+        framewise_hist_pack_group(group.to(card), p, nbins=1000).cpu(),
+        framewise_hist_pack_group(group, p, nbins=1000), rtol=0, atol=0,
+        equal_nan=True)
+    for a, b in zip(largest_centroid_series(torch.from_numpy(av).to(card)),
+                    largest_centroid_series(torch.from_numpy(av))):
+        assert torch.equal(a.cpu(), b)
+    bkgd = torch.from_numpy(~av)
+    got = wase_background(gpu[:-1], bkgd.to(card)).cpu()
+    assert float((got - wase_background(cpu[:-1], bkgd)).abs().max()) <= 1e-6

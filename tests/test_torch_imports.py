@@ -55,3 +55,20 @@ def test_sources_import_no_jax(path):
         else:
             continue
         assert not set(roots) & set(FORBIDDEN), (path, roots)
+
+
+def test_port_imports_without_h5py_pandas_matplotlib():
+    """The card's machine has none of the three: every module of the port
+    and chip_smoke import with them blocked (each is imported inside the
+    function that needs it)."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('h5py', 'pandas', 'matplotlib'):\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

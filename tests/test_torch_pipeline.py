@@ -164,15 +164,21 @@ def test_process_folder_isolates_failures(runs, tmp_path):
 
 
 def test_unported_paths_are_refused(runs, tmp_path):
+    """What the pipeline still lacks raises before anything is written:
+    TV-L1 gamma > 0. WASE and waveforms are ported
+    (tests/test_torch_cohort.py); WASE in otsu mode stays a configuration
+    error, as in the JAX package."""
+    from tee_optical_flow_torch.exceptions import ConfigurationError
+
     dcm, _, _ = runs
     out = str(tmp_path / "x.hdf5")
-    kw = dict(config=TorchConfig(**REDUCED), device="cpu")
-    with pytest.raises(NotImplementedError, match="WASE"):
-        t_pipe.process_video(dcm, out, lambda x: x, mode="A4C",
-                             bkgd_comp="WASE", OF_algo="deepflow", **kw)
-    with pytest.raises(NotImplementedError, match="waveforms"):
+    with pytest.raises(NotImplementedError, match="gamma"):
         t_pipe.process_video(dcm, out, None, mode="otsu", no_saliency=True,
-                             include_waveforms=True, **kw)
+                             config=TorchConfig(tvl1_gamma=0.1, **REDUCED),
+                             device="cpu")
+    with pytest.raises(ConfigurationError, match="otsu"):
+        t_pipe.process_video(dcm, out, None, mode="otsu", bkgd_comp="WASE",
+                             config=TorchConfig(**REDUCED), device="cpu")
     assert not os.path.exists(out)
 
 
