@@ -34,7 +34,17 @@ arguments the TV-L1 and the DeepFlow path handed them):
     synthetic ECG and arterial traces, then the port's dataset from the
     saved arrays in memory and the 69-value cohort row through both
     gates; WASE, the histogram packs, the AV centroid and the row held
-    against their plain or CPU versions.
+    against their plain or CPU versions;
+  * the analysis entry points (phase_peak_plots) on that dataset:
+    cli.peak_plots.analyze_clip under five gating methods, the api's
+    analyses and the overlay video's frames, held against their CPU
+    recomputation (no plot or video file is written: the card's machine
+    has no matplotlib or imageio);
+  * BASELINE config 5 (phase_cli): three 33x480x640 DICOMs through the
+    port's command line, cli.process.main --nchunks 2 with a checkpoint
+    directory and a PipelineConfig JSON (RVIO_2class, saliency, WASE,
+    waveforms, bfloat16), 25 K1 calls per clip, the first clip held
+    against a direct process_video call.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
@@ -140,6 +150,17 @@ COHORT_BEATS_S = (0.05, 1.05, 2.0)
 COHORT_WASE_ATOL = 1e-5
 COHORT_ROW_RTOL = 1e-5
 COHORT_CENTROID_FRAMES = (0, 30)
+
+# BASELINE config 5 through the port's command line (phase_cli): three
+# 33x480x640 DICOMs (echo_clip at these seeds; the first is the main
+# path's clip) with their _II/_ART companions, split over CLI_NCHUNKS
+# chunk folders, RVIO_2class with the vit_t segmentor from a checkpoint
+# directory (SAM_SEED's weights, bfloat16), WASE, saliency and waveforms
+CLI_SEEDS = (0, 1, 2)
+CLI_NCHUNKS = 2
+# the analysis entry points (phase_peak_plots): cli.peak_plots.analyze_clip
+# under each gate, on the config-4 phase's dataset
+PEAK_METHODS = ("angle", "area", "ecg", "ecg_lazy", "arterial")
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -733,12 +754,11 @@ def read_counts():
             "sor_sweeps": dk.sor_sweeps.launches}
 
 
-def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
+def check_schema(saved, n, h, w, mode="otsu"):
     """The HDF5 schema on what process_video wrote (or handed to its save
-    function), and the flow against the analytic motion on the wall,
-    within bounds = (median, p95) px."""
+    function): shapes, dtypes, mask names, the duplicated last flow
+    frame, finite flow, the attributes."""
     from tee_optical_flow_torch.flow.segment import LABEL_MAPS
-    from tee_optical_flow_torch.synthetic import echo_sector_masks
 
     flow, echo, masks = saved["flow"], saved["echo"], saved["masks"]
     attrs = saved["attrs"]
@@ -757,6 +777,15 @@ def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
     assert attrs["nframes"] == n and attrs["mode"] == mode
     assert abs(attrs["frame_rate"] - FPS) < 1e-9
     assert abs(attrs["pixel_spacing"] - SPACING_CM) < 1e-12
+
+
+def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
+    """check_schema, and the flow against the analytic motion on the
+    wall, within bounds = (median, p95) px."""
+    from tee_optical_flow_torch.synthetic import echo_sector_masks
+
+    check_schema(saved, n, h, w, mode)
+    flow = saved["flow"]
     px = flow[:-1].astype(np.float32) / (SPACING_CM * FPS)
     wall = echo_sector_masks(h, w)["wall"].copy()
     wall[:8] = wall[-8:] = False
@@ -1266,25 +1295,16 @@ def phase_k2(captured, calls):
 def sam_segmentor(captured):
     """The SAM path's segmentor: vit_t at 1024 with SAM_CLASSES classes,
     seeded random weights, bfloat16, micro-batch SAM_MICRO_BATCH. Its
-    labels_device keeps the labels of its last call in
-    ``captured["labels"]``."""
+    labels_device appends each call's labels to ``captured``."""
     import torch
 
     from tee_optical_flow_torch.models import (
         build_sam_vit_t, make_clip_segmentor,
     )
 
-    seg = make_clip_segmentor(build_sam_vit_t(
+    return record_labels(make_clip_segmentor(build_sam_vit_t(
         num_classes=SAM_CLASSES, seed=SAM_SEED, dtype=torch.bfloat16),
-        micro_batch=SAM_MICRO_BATCH)
-    inner = seg.labels_device
-
-    def recording(clip, clip_hw):
-        captured["labels"] = inner(clip, clip_hw)
-        return captured["labels"]
-
-    seg.labels_device = recording
-    return seg
+        micro_batch=SAM_MICRO_BATCH), captured)
 
 
 def phase_sam_masks(labels, masks, dcm, seg):
@@ -1468,6 +1488,30 @@ def cohort_inputs(h, w, folder, base):
 
 
 @contextlib.contextmanager
+def substituted(module, name, fn):
+    """Replace ``module.name`` by ``fn`` inside the block."""
+    inner = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def record_labels(seg, store):
+    """The segmentor ``seg`` with its labels_device appending each call's
+    labels to ``store``."""
+    inner = seg.labels_device
+
+    def recording(clip, clip_hw):
+        store.append(inner(clip, clip_hw))
+        return store[-1]
+
+    seg.labels_device = recording
+    return seg
+
+
+@contextlib.contextmanager
 def record_wase(captured):
     """Wrap the pipeline's wase_background: keep its arguments and its
     output in ``captured``; restore it on exit."""
@@ -1480,11 +1524,8 @@ def record_wase(captured):
         captured.update(flow=flow_pairs.clone(), bkgd=bkgd.clone(), out=out)
         return out
 
-    pl.wase_background = recording
-    try:
+    with substituted(pl, "wase_background", recording):
         yield
-    finally:
-        pl.wase_background = inner
 
 
 def phase_cohort(clip, workdir):
@@ -1698,7 +1739,383 @@ def phase_cohort(clip, workdir):
         f" s on the CPU)")
     return dict(stages, launches=counts["tvl1_outer_loop"],
                 wase_err_px=err, row=[v if isinstance(v, str) else float(v)
-                                      for v in row])
+                                      for v in row], layout=layout)
+
+
+def layout_of_file(path):
+    """An HDF5 file as io/hdf5.optical_flow_layout's dict."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: (f[k][()], dict(f[k].attrs)) for k in f}
+
+
+def saved_of_layout(layout):
+    """check_schema's view of a layout."""
+    attrs = layout["flow"][1]
+    return dict(flow=layout["flow"][0], echo=layout["echo"][0],
+                masks={k: layout[k][0] for k in attrs["labels"]},
+                attrs=attrs)
+
+
+def phase_cli(clip, workdir, has_h5py):
+    """BASELINE config 5 on the card through the port's command line,
+    cli.process.main: a folder of three synthetic 33x480x640 DICOMs at
+    --nchunks 2 with a checkpoint directory (args.json and a
+    checkpoint_best.pth of SAM_SEED's vit_t), their waveform folder and a
+    PipelineConfig JSON (RVIO_2class, TV-L1 under the production config,
+    saliency, WASE, waveforms, bfloat16). Where h5py is absent,
+    main(_save_fn=...) captures what would be written.
+
+    Checks: rc 0; the 2 + 1 split into chunk0/ and chunk1/; each clip's
+    schema (the random-weight labels leave the flow bounds to the other
+    paths) with its waveforms; 25 K1 calls per clip; the first clip's
+    labels, masks, flow, echo and waveforms against a direct
+    process_video call of the same DICOM with a segmentor loaded from the
+    same checkpoint. Prints the CLI's seconds, each clip's (host clock to
+    a synchronise; the second and third are the steady state), the stage
+    report and load_segmentor's seconds."""
+    import torch
+
+    from tee_optical_flow_torch.cli import process as cli
+    from tee_optical_flow_torch.config import DeviceConfig, PipelineConfig
+    from tee_optical_flow_torch.flow import pipeline as pl
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+    from tee_optical_flow_torch.models import build_sam_vit_t
+    from tee_optical_flow_torch.utils import get_stage_report
+
+    n, h, w = clip.shape
+    root = os.path.join(workdir, "config5")
+    dcm_dir, wf_dir, ckpt, out = (os.path.join(root, d)
+                                  for d in ("dcm", "wf", "run", "out"))
+    for d in (dcm_dir, wf_dir, ckpt):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    names = [f"{chr(ord('a') + i)}.dcm" for i in range(len(CLI_SEEDS))]
+    for name, seed in zip(names, CLI_SEEDS):
+        frames = clip if seed == 0 else echo_clip(n, h, w, seed=seed)[0]
+        write_dicom_clip(os.path.join(dcm_dir, name),
+                         np.repeat(frames[..., None], 3, axis=-1),
+                         frame_rate=FPS, pixel_spacing=SPACING_CM)
+        cohort_inputs(h, w, wf_dir, name[:-4])
+    with open(os.path.join(ckpt, "args.json"), "w") as f:
+        json.dump({"num_cls": SAM_CLASSES, "arch": "vit_t"}, f)
+    torch.save(build_sam_vit_t(num_classes=SAM_CLASSES, seed=SAM_SEED,
+                               device="cpu").state_dict(),
+               os.path.join(ckpt, "checkpoint_best.pth"))
+    cfg = PipelineConfig(mode="RVIO_2class", of_algo="tvl1",
+                         no_saliency=False, wase=True,
+                         include_waveforms=True,
+                         device=DeviceConfig(model_dtype="bfloat16"))
+    cfg_path = os.path.join(root, "pipeline.json")
+    cfg.to_json(cfg_path)
+    argv = ["--dcm_folder", dcm_dir, "--save_folder", out, "--nchunks",
+            str(CLI_NCHUNKS), "--checkpoint_dir", ckpt, "--waveform_folder",
+            wf_dir, "--config", cfg_path]
+    log(f"--- config 5: python -m tee_optical_flow_torch.cli.process "
+        f"{' '.join(argv)} (RVIO_2class, TVL1, saliency, WASE, waveforms, "
+        f"bfloat16; {len(names)} DICOMs {n}x{h}x{w}, inputs written in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    saved, clips, labels, load_s = {}, [], [], []
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        saved[save_path] = optical_flow_layout(
+            flow_arr, echo_gray, mask_dict, metadata, waveforms, **kw)
+
+    inner_video, inner_load = pl.process_video, cli.load_segmentor
+
+    def timed_video(dcm_path, *args, **kw):
+        before = read_counts()["tvl1_outer_loop"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner_video(dcm_path, *args, **kw)
+        torch.cuda.synchronize()
+        clips.append((os.path.basename(dcm_path), time.perf_counter() - t0,
+                      read_counts()["tvl1_outer_loop"] - before))
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        seg = inner_load(*args, **kw)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return record_labels(seg, labels)
+
+    if not has_h5py:
+        log("h5py is absent: cli.process.main(_save_fn=...) captures each "
+            "clip's layout instead of writing it")
+    get_stage_report(reset=True)
+    reset_counts()
+    with substituted(pl, "process_video", timed_video), \
+            substituted(cli, "load_segmentor", timed_load):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv, _save_fn=None if has_h5py else capture)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    report = get_stage_report()
+    log(f"config 5 CLI: rc {rc}, {cli_s:.3f} s for {len(names)} clips "
+        f"(load_segmentor {load_s[0]:.3f} s); launches {counts}")
+    for name, sec, k1 in clips:
+        log(f"  clip {name}: {sec:.3f} s, {k1} K1 calls")
+    log("  stages (host clock, s): " + ", ".join(
+        f"{k} {v['total_s']:.3f} ({v['calls']}x)" for k, v in report.items()))
+    assert rc == 0, rc
+    assert [c[0] for c in clips] == names, clips
+    assert all(c[2] == TV_LEVELS * TV_WARPS for c in clips), clips
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS
+                          * len(names)), counts
+    chunks = np.array_split(np.asarray(names), CLI_NCHUNKS)
+    expect = [os.path.join(out, f"chunk{i}", name[:-4] + ".hdf5")
+              for i, part in enumerate(chunks) for name in part]
+    if has_h5py:
+        assert all(os.path.exists(p) for p in expect), expect
+        saved = {p: layout_of_file(p) for p in expect}
+    assert sorted(saved) == sorted(expect), sorted(saved)
+    for path in expect:
+        layout = saved[path]
+        check_schema(saved_of_layout(layout), n, h, w, "RVIO_2class")
+        attrs = layout["flow"][1]
+        assert {"ecg", "art"} <= set(layout), sorted(layout)
+        assert attrs["waveforms_present"] and not attrs["no_saliency"]
+    log(f"config 5 outputs: {[os.path.relpath(p, out) for p in expect]}, "
+        f"schema, waveforms and saliency flag checked")
+
+    # the first clip again, straight through process_video
+    direct, direct_labels = {}, []
+    seg = record_labels(cli.load_segmentor(ckpt, model_dtype="bfloat16"),
+                        direct_labels)
+    pl.process_video(
+        os.path.join(dcm_dir, names[0]), "direct.hdf5", seg, verbose=False,
+        mode="RVIO_2class", bkgd_comp="WASE", no_saliency=False,
+        OF_algo="TVL1", include_waveforms=True, waveform_folder=wf_dir,
+        config=cfg.flow,
+        _save_fn=lambda p, *a, verbose=False, **kw: direct.update(
+            layout=optical_flow_layout(*a, **kw)))
+    agree = float((labels[0] == direct_labels[0]).float().mean())
+    log(f"config 5 first clip: labels of the CLI run and of a direct "
+        f"process_video call agree on {agree:.6f} of "
+        f"{labels[0].numel()} pixels")
+    got, ref = saved[expect[0]], direct["layout"]
+    assert sorted(got) == sorted(ref), (sorted(got), sorted(ref))
+    if agree == 1.0:
+        for key in ref:
+            assert np.array_equal(got[key][0], ref[key][0]), key
+        log("config 5 first clip: masks, flow, echo and waveforms "
+            "bit-equal to the direct process_video call")
+    else:
+        diff = np.abs(got["flow"][0].astype(np.float32)
+                      - ref["flow"][0].astype(np.float32))
+        log(f"config 5 first clip: labels differ, flow max |CLI - direct| "
+            f"{float(diff.max()):.3g} (WASE couples every pair to the "
+            f"clip's whole background mask)")
+        assert agree >= SAM_F32_AGREE, agree
+    return dict(cli_s=cli_s, clip_s=[c[1] for c in clips],
+                load_segmentor_s=load_s[0], labels_agree=agree,
+                launches=counts["tvl1_outer_loop"],
+                stages={k: v["total_s"] for k, v in report.items()})
+
+
+def phase_peak_plots(layout):
+    """The analysis entry points on the card, on the config-4 phase's dataset
+    in memory: cli.peak_plots.analyze_clip under each of PEAK_METHODS
+    with the radial/longitudinal data and the overlay arrays
+    (--generate_videos, nbins 1000), api.analyze_optical_flow,
+    api.analyze_radlong and api.detect_cardiac_cycle, and
+    viz.manager.radlong_overlay_frames over the clip's frames, each
+    timed to a synchronise.
+
+    Held against their CPU recomputation: the packs, traces and the
+    radial/longitudinal arrays bit-equal (the radial/longitudinal pass
+    from the card's centroid track: the CPU labelling of the whole clip is
+    too slow; the angle histogram from the card's angles: torch's atan2
+    differs by an ulp between CUDA and the CPU), the raw AV centroid and
+    the area series at COHORT_CENTROID_FRAMES, the cycles of every method
+    equal lists (the host detection on the CPU from the card's area and
+    angle-mode series; how many mode frames the CPU's own atan2 gives
+    alike is printed), the overlay frames bit-equal when recomputed on the
+    CPU from the card's arrays.
+    No plot or video file is written: the card's machine has neither
+    matplotlib nor imageio."""
+    import torch
+
+    from tee_optical_flow_torch import api
+    from tee_optical_flow_torch.analysis import calculate_3dhist
+    from tee_optical_flow_torch.analysis.components import (
+        calculate_comp_magnitude,
+    )
+    from tee_optical_flow_torch.analysis.histograms import (
+        _framewise_hist_and_percentiles, _radlong_hists, cart_to_polar,
+    )
+    from tee_optical_flow_torch.cli import peak_plots
+    from tee_optical_flow_torch.dataset import OpticalFlowDataset
+    from tee_optical_flow_torch.ops.morphology import (
+        first_area_series, largest_centroid_series,
+    )
+    from tee_optical_flow_torch.signal import cycles
+    from tee_optical_flow_torch.signal.smoother import spectral_smooth
+    from tee_optical_flow_torch.viz.manager import radlong_overlay_frames
+
+    ds = OpticalFlowDataset("echo_config4.hdf5", _file_override=layout)
+    nf = ds.nframes
+    log(f"--- analysis entry points on the config-4 dataset ({nf} frames, "
+        f"labels {ds.accepted_labels}); no plot or video file is written "
+        f"on the card (no matplotlib or imageio there): their arrays are "
+        f"held against the CPU instead")
+    parser = peak_plots.build_parser()
+    secs, res = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    for method in PEAK_METHODS:
+        args = parser.parse_args(["echo_config4.hdf5", "--cc_method", method,
+                                  "--generate_heatmaps", "--generate_videos"])
+        res[method] = timed(f"analyze_clip_{method}_s",
+                            lambda: peak_plots.analyze_clip(ds, args,
+                                                            "cuda"))
+        r = res[method]
+        log(f"analyze_clip --cc_method {method}: {r['cc_method']} gating, "
+            f"{len(r['sys_frames'])} systoles / {len(r['dia_frames'])} "
+            f"diastoles, {secs[f'analyze_clip_{method}_s']:.3f} s")
+    api_flow = timed("api_analyze_optical_flow_s",
+                     lambda: api.analyze_optical_flow(ds, "velocity", "rv",
+                                                      device="cuda"))
+    api_rl = timed("api_analyze_radlong_s",
+                   lambda: api.analyze_radlong(ds, "velocity",
+                                               device="cuda"))
+    api_cc = timed("api_detect_cardiac_cycle_s",
+                   lambda: api.detect_cardiac_cycle(ds, "ecg_lazy",
+                                                    device="cuda"))
+    first = res[PEAK_METHODS[0]]
+    echo = ds.get_echo()[:nf]
+    frames = timed("overlay_s", lambda: radlong_overlay_frames(
+        echo, first["rad_arr"], first["long_arr"], nf))
+    assert frames.device == first["rad_arr"].device
+    assert frames.dtype == torch.uint8
+    assert tuple(frames.shape) == (nf, echo.shape[1], 2 * echo.shape[2], 3)
+    log("analysis entry points on the card (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+
+    # the CPU recomputation. torch's atan2 differs by an ulp between CUDA
+    # and the CPU, so the angle histogram is recomputed on the CPU from
+    # the card's angles (as phase_cohort's packs are); the magnitude, its
+    # trace and the radial/longitudinal arrays from the CPU's own
+    t0 = time.perf_counter()
+    args = parser.parse_args(["echo_config4.hdf5"])
+    label = first["label"]
+    masked = ds.device_masked_arr(args.param, label, "cpu")
+    mag, _, me, _, perc_hi = calculate_3dhist(
+        masked, nf, nbins=args.nbins, percentile=args.percentile)
+    filt = spectral_smooth(perc_hi, args.smooth_fraction, 20)
+    ang_card = cart_to_polar(ds.device_masked_arr(args.param, label,
+                                                  "cuda")[:nf])[1].cpu()
+    ang_ulps = int((ang_card != cart_to_polar(masked[:nf])[1]).sum())
+    ang, ae = _framewise_hist_and_percentiles(ang_card, nf, [50],
+                                              args.nbins)[:2]
+    cents = first["centroids"]
+    rad, lng = calculate_comp_magnitude(masked, cents)
+    radlong = _radlong_hists(rad, lng, nf, args.nbins, 1, 99)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same(a[k], b[k])
+                                                  for k in a)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, torch.Tensor):
+            a, b = a.cpu(), torch.as_tensor(b).cpu()
+            return bool(torch.equal(a, b))
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    for method, r in res.items():
+        for key, ref in (("mag", mag), ("ang", ang), ("mag_edges", me),
+                         ("ang_edges", ae), ("perc_hi", perc_hi),
+                         ("filt", filt), ("centroids", cents),
+                         ("radlong", radlong), ("rad_arr", rad),
+                         ("long_arr", lng)):
+            assert same(r[key], ref), (method, key)
+    assert same(api_flow, {"magnitude": mag, "angle": ang,
+                           "magnitude_edges": me, "angle_edges": ae,
+                           "percentile_high": perc_hi})
+    assert same(api_rl, radlong)
+    log(f"packs, traces and radial/longitudinal arrays of every analysis "
+        f"call bit-equal to the CPU's ({time.perf_counter() - t0:.1f} s on "
+        f"the CPU; radial/longitudinal from the card's centroid track, the "
+        f"angle histogram from the card's angles: {ang_ulps} of "
+        f"{ang_card.numel()} atan2 values differ from the CPU's)")
+
+    # the per-frame labellings at a few frames, then the cycles
+    t0 = time.perf_counter()
+    picks = list(COHORT_CENTROID_FRAMES)
+    av = torch.from_numpy(np.ascontiguousarray(
+        ds.get_mask("av")[:nf, :, :, 0].astype(bool)))
+    rv = torch.from_numpy(np.ascontiguousarray(
+        ds.get_mask(first["cc_label"])[:nf, :, :, 0].astype(bool)))
+    for name, fn, masks in (("AV centroid", largest_centroid_series, av),
+                            ("area", first_area_series, rv)):
+        card = fn(masks.cuda())
+        cpu = fn(masks[picks])
+        for a, b in zip(card, cpu):
+            assert torch.equal(a[picks].cpu(), b), (name, a[picks], b)
+        if name == "area":
+            areas = [t.cpu() for t in card]
+    log(f"AV centroid and {first['cc_label']} area series at frames {picks} "
+        f"equal on the card and the CPU ({time.perf_counter() - t0:.1f} s "
+        f"of CPU labelling)")
+    t0 = time.perf_counter()
+
+    def card_areas(frames):
+        assert tuple(frames.shape) == tuple(rv.shape), frames.shape
+        return tuple(areas)
+
+    # the angle detector's per-frame mode of the rounded angles, on the
+    # card and the CPU: atan2's ulp can move a value across a bucket edge
+    modes = cycles.angle_mode_series(
+        ds.device_masked_arr(args.param, first["cc_label"], "cuda")[:nf]
+    ).cpu()
+    modes_cpu = cycles.angle_mode_series(ds.device_masked_arr(
+        args.param, first["cc_label"], "cpu")[:nf])
+    log(f"angle mode series: {int((modes == modes_cpu).sum())} of {nf} "
+        f"frames equal on the card and the CPU (max difference "
+        f"{float((modes - modes_cpu).abs().max()):.3g} rad)")
+
+    def card_modes(flow):
+        assert tuple(flow.shape[:3]) == tuple(rv.shape), flow.shape
+        return modes
+
+    with substituted(cycles, "first_area_series", card_areas), \
+            substituted(cycles, "angle_mode_series", card_modes):
+        for method, r in res.items():
+            ref = api.detect_cardiac_cycle(ds, r["cc_method"], args.param,
+                                           r["cc_label"], device="cpu")
+            assert same(list(ref), [r["sys_frames"], r["dia_frames"]]), \
+                (method, ref, r["sys_frames"], r["dia_frames"])
+    assert same(list(api_cc), [res["ecg_lazy"]["sys_frames"],
+                               res["ecg_lazy"]["dia_frames"]])
+    log(f"cycles of {list(res)} equal to the CPU's "
+        f"({time.perf_counter() - t0:.1f} s on the CPU; the area and angle "
+        f"detectors from the card's per-frame series)")
+
+    t0 = time.perf_counter()
+    ref = radlong_overlay_frames(echo, first["rad_arr"].cpu(),
+                                 first["long_arr"].cpu(), nf)
+    got = frames.cpu()
+    differ = int((got != ref).any(dim=-1).sum())
+    log(f"overlay frames {tuple(got.shape)} on the card against the CPU from "
+        f"the card's arrays: {differ} pixels differ (bound 0; "
+        f"{time.perf_counter() - t0:.1f} s on the CPU)")
+    assert differ == 0, differ
+    return dict(secs, cycles={m: [len(r["sys_frames"]), len(r["dia_frames"])]
+                              for m, r in res.items()})
 
 
 def main() -> int:
@@ -1714,7 +2131,7 @@ def main() -> int:
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
     k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
-    k2_args, k2_calls, sam_labels = {}, {}, {}
+    k2_args, k2_calls, sam_labels = {}, {}, []
     clips = {"TVL1": (clip, truth), "deepflow": (clip, truth),
              "TVL1 600x800": echo_clip(K2_FRAMES, K2_H, K2_W),
              "SAM": (clip, truth)}
@@ -1743,10 +2160,12 @@ def main() -> int:
                 name, dcm, frames, flow, has_h5py, workdir, recorders[name],
                 seg if PATHS[name]["mode"] != "otsu" else None)
             if name == "SAM":
-                sam_stages = phase_sam_masks(sam_labels["labels"],
+                sam_stages = phase_sam_masks(sam_labels[-1],
                                              results[name][4]["masks"], dcm,
                                              seg)
         cohort = phase_cohort(clip, workdir)
+        analysis = phase_peak_plots(cohort.pop("layout"))
+        config5 = phase_cli(clip, workdir, has_h5py)
     del seg, sam_labels
     k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
@@ -1782,7 +2201,8 @@ def main() -> int:
             k1[(coarsest, 0.01)], eps0=k1[(coarsest, 0.0)])},
         true_flow=records["tvl1_outer_loop"],
         sam_path_launches=results["SAM"][0]["tvl1_outer_loop"],
-        config4_path_launches=cohort["launches"])
+        config4_path_launches=cohort["launches"],
+        config5_path_launches=config5["launches"])
     k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
     for name, source, replaces, launches, path in (
@@ -1815,7 +2235,8 @@ def main() -> int:
                                    "device_launches", "barrier_us",
                                    "clip_device_ms", "clip_device_launches",
                                    "true_flow", "sam_path_launches",
-                                   "config4_path_launches")
+                                   "config4_path_launches",
+                                   "config5_path_launches")
                if k in rec},
         })
     for name, (_, clip_s, solver_s, _, _) in results.items():
@@ -1828,6 +2249,8 @@ def main() -> int:
     log("config 4: " + json.dumps(
         {k: v for k, v in cohort.items() if k != "row"}))
     log(f"config 4 row: {json.dumps(cohort['row'])}")
+    log("config 5: " + json.dumps(config5))
+    log("analysis entry points: " + json.dumps(analysis))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,12 +3,12 @@
 Copies of the JAX package's ``OpticalFlowCalculationConfig``, its
 analysis-side configurations (``CardiacCycleConfig``,
 ``VisualizationConfig``, ``ProcessingConfig``, ``PeakDetectionConfig``,
-``AnalysisConfig``, ``CardiacCycleMethodConfig``), their preset factories
-and the JSON helpers (``config.py:28-203,206-302,402-443`` there). The
-fields, names and defaults are the same, so a JSON written by the JAX
-package's ``to_json`` loads here field for field, and back. TV-L1 has no
-learned weights: these configurations are the whole state the flow and
-analysis paths carry across.
+``AnalysisConfig``, ``CardiacCycleMethodConfig``), the run bundle
+``PipelineConfig`` with its ``DeviceConfig`` and ``validate_pipeline_config``,
+their preset factories and the JSON helpers (``config.py:28-333,376-477``
+there; ``TrainConfig`` waits for training). The fields, names and defaults
+are the same, so a JSON written by the JAX package's ``to_json`` loads
+here field for field, and back.
 
 ``tvl1_use_pallas`` keeps its name for that compatibility. In the port it
 selects the TPU reference's per-size choice of stopping rule
@@ -58,7 +58,10 @@ def _fromdict(cls: type, data: dict) -> Any:
         if key not in known:
             continue  # forward compatible: ignore unknown keys
         ftype = known[key].type
-        if (isinstance(ftype, str) and ftype.startswith("Tuple")
+        target = _DATACLASS_FIELDS.get((cls, key))
+        if target is not None and isinstance(value, dict):
+            value = _fromdict(target, value)
+        elif (isinstance(ftype, str) and ftype.startswith("Tuple")
                 and isinstance(value, list)):
             value = tuple(value)  # JSON has no tuples
         kwargs[key] = value
@@ -269,6 +272,58 @@ class OpticalFlowCalculationConfig(_JsonMixin):
 
 
 # ---------------------------------------------------------------------------
+# the run bundle of cli/process
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeviceConfig(_JsonMixin):
+    """Device and dtype policy of a run."""
+
+    # frame-axis data parallelism of the segmentor over data_axis cards
+    # (not ported yet: cli/process.load_segmentor refuses data_axis > 1);
+    # None -> one card
+    data_axis: Optional[int] = None
+    model_axis: int = 1
+    # compute_dtype is the flow solvers' precision (float32 only:
+    # validated); model_dtype the segmentor's (cli/process.load_segmentor;
+    # "int8", weight-only quantized, passes validation and is refused
+    # there until it is ported)
+    compute_dtype: str = "float32"
+    model_dtype: str = "bfloat16"
+    frame_bucket: int = 8
+    spatial_bucket: int = 32
+    # where the CUDA kernel library is built and kept, so a later run that
+    # points here skips nvcc (core.enable_compilation_cache); None ->
+    # build/kernels/ in the checkout
+    compilation_cache_dir: Optional[str] = None
+
+
+@dataclass
+class PipelineConfig(_JsonMixin):
+    """Top-level bundle for DICOM->HDF5 production (cli/process --config)."""
+
+    flow: OpticalFlowCalculationConfig = field(
+        default_factory=OpticalFlowCalculationConfig)
+    processing: ProcessingConfig = field(default_factory=ProcessingConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
+    # 'otsu' | 'RVIO_2class' | 'A4C' | 'MouseRV_A4C'
+    mode: str = "otsu"
+    of_algo: Literal["tvl1", "deepflow"] = "tvl1"
+    no_saliency: bool = True
+    wase: bool = False               # background (WASE) compensation
+    include_waveforms: bool = True
+    save_mask_subset: Optional[List[str]] = None
+
+
+# nested-field registry used by _fromdict
+_DATACLASS_FIELDS = {
+    (PipelineConfig, "flow"): OpticalFlowCalculationConfig,
+    (PipelineConfig, "processing"): ProcessingConfig,
+    (PipelineConfig, "device"): DeviceConfig,
+}
+
+
+# ---------------------------------------------------------------------------
 # preset factories (parity with reference config.py:108-193)
 # ---------------------------------------------------------------------------
 
@@ -316,3 +371,38 @@ def area_detection_config() -> CardiacCycleConfig:
 
 def default_optical_flow_config() -> OpticalFlowCalculationConfig:
     return OpticalFlowCalculationConfig()
+
+
+def validate_pipeline_config(cfg: PipelineConfig) -> None:
+    """Raise ConfigurationError on inconsistent settings (reference
+    calculate_optical_flow.py:509-517 validates mode/labels similarly)."""
+    valid_modes = {"otsu", "RVIO_2class", "A4C", "MouseRV_A4C"}
+    if cfg.mode not in valid_modes:
+        raise ConfigurationError(
+            f"mode {cfg.mode!r} not in {sorted(valid_modes)}")
+    if cfg.of_algo not in ("tvl1", "deepflow"):
+        raise ConfigurationError(
+            f"of_algo {cfg.of_algo!r} must be 'tvl1' or 'deepflow'")
+    if cfg.flow.lambda_value <= 0:
+        raise ConfigurationError("lambda_value must be positive")
+    if not (0 < cfg.flow.tvl1_zoom_factor < 1):
+        raise ConfigurationError("tvl1_zoom_factor must be in (0, 1)")
+    if cfg.flow.tvl1_interpolation not in ("bilinear", "bicubic"):
+        raise ConfigurationError(
+            "tvl1_interpolation must be 'bilinear' or 'bicubic'")
+    if cfg.flow.deepflow_interpolation not in ("bilinear", "bicubic"):
+        raise ConfigurationError(
+            "deepflow_interpolation must be 'bilinear' or 'bicubic'")
+    if cfg.mode == "otsu" and cfg.wase:
+        raise ConfigurationError(
+            "WASE background compensation needs segmentation masks; "
+            "mode=otsu only supports wase=False "
+            "(reference calculate_optical_flow.py:509-517)")
+    if cfg.device.compute_dtype != "float32":
+        raise ConfigurationError(
+            "device.compute_dtype: only float32 is supported for the "
+            "variational flow solvers")
+    if cfg.device.model_dtype not in ("float32", "bfloat16", "int8"):
+        raise ConfigurationError(
+            "device.model_dtype must be 'float32', 'bfloat16', or 'int8' "
+            "(int8 = weight-only quantized kernels, bfloat16 compute)")

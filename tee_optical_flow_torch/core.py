@@ -14,10 +14,18 @@ square root on every device.
 ``resolve_device`` is the port's rule for entry points: they run on
 ``cuda`` unless the caller asks for ``cpu``, and they raise when no CUDA
 device is present and the CPU was not asked for.
+
+``enable_compilation_cache`` is the port's counterpart of the JAX
+package's persistent XLA cache: what the port compiles and keeps across
+runs is its CUDA kernel library, so the function moves where that
+library is built and looked for.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -27,10 +35,35 @@ import torch.nn.functional as F
 from .utils.helpers import pad_to_multiple
 
 __all__ = [
-    "as_device_tensor", "bucketed_frame_count", "bucketed_spatial", "fma32",
+    "as_device_tensor", "bucketed_frame_count", "bucketed_spatial",
+    "enable_compilation_cache", "fma32",
     "pad_clip_frames", "pad_spatial_edge", "pad_to_multiple",
     "resolve_device", "sqrt32",
 ]
+
+
+def enable_compilation_cache(cache_dir: str) -> bool:
+    """Build and look for the CUDA kernel library (``ops/cuda_lib``) under
+    ``cache_dir`` instead of ``build/kernels/`` in the checkout, so every
+    run that points at the same directory after the first loads the
+    library built there and skips nvcc. The port has no XLA executables
+    to keep: the kernel library is the only thing it compiles and reuses
+    across processes. A library already loaded in this process stays in
+    use.
+
+    Wired from ``DeviceConfig.compilation_cache_dir`` (cli/process
+    --compilation_cache_dir / --config). Returns False, with a warning,
+    when the directory cannot be made, instead of failing the run."""
+    from .ops import cuda_lib
+
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError as exc:
+        logging.getLogger(__name__).warning(
+            "kernel build cache %s disabled (%r)", cache_dir, exc)
+        return False
+    cuda_lib.BUILD_DIR = Path(cache_dir)
+    return True
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -13,8 +13,10 @@ Schema (reference optical_flow/calculate_optical_flow.py:370-475):
 ``optical_flow_layout`` builds, in memory, the datasets and attributes
 the writer stores, with their stored dtypes; ``save_optical_flow_hdf5``
 writes that layout. ``dataset.OpticalFlowDataset(_file_override=...)``
-reads the same layout from memory. ``h5py`` is imported inside the writer:
-a machine without it can still import and run everything up to the write.
+reads the same layout from memory. ``HDF5Reader`` and ``HDF5Writer`` are
+the generic context managers of reference file_io.py:18-116. ``h5py`` is
+imported inside the writer and the context managers: a machine without it
+can still import and run everything up to the write.
 """
 
 from __future__ import annotations
@@ -31,6 +33,69 @@ from ..utils import safe_makedir
 Layout = Dict[str, Tuple[np.ndarray, Dict[str, Any]]]
 
 logger = logging.getLogger(__name__)
+
+
+class HDF5Reader:
+    """Context-managed HDF5 reader (reference file_io.py:18-74)."""
+
+    def __init__(self, filepath: str, mode: str = "r"):
+        self.filepath = filepath
+        self.mode = mode
+        self._file = None
+
+    def __enter__(self):
+        import h5py
+
+        self._file = h5py.File(self.filepath, self.mode)
+        return self._file
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+        return False
+
+    def read_dataset(self, key: str) -> Any:
+        with self as f:
+            if key not in f:
+                raise KeyError(f"Dataset '{key}' not found in HDF5 file")
+            return f[key][()]
+
+    def read_attributes(self, key: str) -> dict:
+        with self as f:
+            if key not in f:
+                raise KeyError(f"Dataset '{key}' not found in HDF5 file")
+            return dict(f[key].attrs)
+
+
+class HDF5Writer:
+    """Context-managed HDF5 writer (reference file_io.py:77-116)."""
+
+    def __init__(self, filepath: str, mode: str = "w"):
+        self.filepath = filepath
+        self.mode = mode
+        self._file = None
+
+    def __enter__(self):
+        import h5py
+
+        parent = os.path.dirname(self.filepath)
+        if parent:
+            safe_makedir(parent)
+        self._file = h5py.File(self.filepath, self.mode)
+        return self._file
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+        return False
+
+    def write_dataset(self, key: str, data: Any, **attrs):
+        with self as f:
+            dset = f.create_dataset(key, data=data)
+            for k, v in attrs.items():
+                dset.attrs[k] = v
 
 
 def optical_flow_layout(

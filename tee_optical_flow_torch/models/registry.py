@@ -90,7 +90,7 @@ def _vitdet(arch: str):
         raise NotImplementedError(
             f"SAM {arch} (the ViT-Det encoder, the JAX package's "
             "models/image_encoder.py) is not ported yet: ROADMAP.md, queue "
-            "1, item 3")
+            "1, item 4")
 
     build.__name__ = f"build_sam_{arch}"
     return build

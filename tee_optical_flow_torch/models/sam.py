@@ -124,7 +124,7 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
         raise NotImplementedError(
             "make_clip_segmentor(weights_int8=True) (the JAX package's "
             "models/quantize.py) is not ported yet: ROADMAP.md, queue 1, "
-            "item 3")
+            "item 4")
     if mesh is not None:
         raise NotImplementedError(
             "make_clip_segmentor(mesh=...) (frame-axis data parallelism) is "

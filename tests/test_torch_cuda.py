@@ -468,3 +468,20 @@ def test_cohort_passes_card_match_cpu(card):
     bkgd = torch.from_numpy(~av)
     got = wase_background(gpu[:-1], bkgd.to(card)).cpu()
     assert float((got - wase_background(cpu[:-1], bkgd)).abs().max()) <= 1e-6
+
+
+def test_radlong_overlay_frames_card_match_cpu(card):
+    """The overlay video's frames (echo normalisation, the centred norm
+    with its float64 steps, the bwr / BrBG table gather and the 50/50
+    blend) on the card, bit-equal to the same call on the CPU."""
+    from tee_optical_flow_torch.viz.manager import radlong_overlay_frames
+
+    rng = np.random.default_rng(3)
+    echo = rng.uniform(size=(6, 120, 160)).astype(np.float16)
+    rad = rng.normal(scale=2.0, size=(5, 120, 160)).astype(np.float32)
+    lng = rng.normal(scale=0.5, size=(5, 120, 160)).astype(np.float32)
+    rad[:, :10] = 0.0
+    got = radlong_overlay_frames(echo[:5], rad, lng, 5, device=card)
+    ref = radlong_overlay_frames(echo[:5], rad, lng, 5, device="cpu")
+    assert got.device.type == "cuda" and got.shape == (5, 120, 320, 3)
+    assert torch.equal(got.cpu(), ref)

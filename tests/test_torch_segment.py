@@ -173,12 +173,12 @@ def test_segmentor_mode_needs_a_segmentor(tmp_path):
 
 
 def test_unported_options_are_refused():
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         sam_model_registry["vit_b"](num_classes=3)
     with pytest.raises(NotImplementedError, match="item 8"):
         build_sam_vit_t(adapter_stages=(1,), device="cpu")
     model = build_sam_vit_t(num_classes=3, image_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         make_clip_segmentor(model, weights_int8=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         make_clip_segmentor(model, mesh=object())
