@@ -44,7 +44,16 @@ arguments the TV-L1 and the DeepFlow path handed them):
     port's command line, cli.process.main --nchunks 2 with a checkpoint
     directory and a PipelineConfig JSON (RVIO_2class, saliency, WASE,
     waveforms, bfloat16), 25 K1 calls per clip, the first clip held
-    against a direct process_video call.
+    against a direct process_video call;
+  * SAM vit_t fine-tuning (phase_train) at full width (1024, out 256,
+    SAM_CLASSES classes, batch 4, float32 parameters, AdamW lr 1e-4,
+    weight decay 0.1) on the clip's frames with labels from its geometry,
+    through the port's PublicDataset: the median ms per step (float32 and
+    TF32), images per second, peak memory and the step's FLOPs; a 30-step
+    overfit of one batch; 3 steps each of the adapter and LoRA policies;
+    one step card against CPU in strict float32 (loss, every gradient,
+    the eval DSC); and cli.train -> checkpoint_best.pth -> load_segmentor
+    (labels equal to the trained model's) -> cli.process (25 K1 calls).
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
@@ -161,6 +170,29 @@ CLI_NCHUNKS = 2
 # the analysis entry points (phase_peak_plots): cli.peak_plots.analyze_clip
 # under each gate, on the config-4 phase's dataset
 PEAK_METHODS = ("angle", "area", "ecg", "ecg_lazy", "arterial")
+
+# SAM fine-tuning (phase_train): vit_t at 1024 (decoder out 256) with
+# SAM_CLASSES classes, vanilla with the encoder updated, AdamW at lr 1e-4
+# and weight decay 0.1, float32 parameters, batch TRAIN_BATCH. Timing: the
+# median of TRAIN_TIMED steps after TRAIN_WARM, CUDA events per step (of
+# TRAIN_PEFT_STEPS after TRAIN_WARM for the adapter and LoRA steps). The
+# overfit check: TRAIN_OVERFIT_STEPS steps on one batch at a constant lr,
+# the last loss at most TRAIN_OVERFIT_RATIO x the first. Card against CPU,
+# one step at batch 1 in strict float32: the loss within TRAIN_LOSS_REL
+# relative, each gradient within TRAIN_GRAD_REL x its tensor's max-abs;
+# a tensor whose gradient is zero in exact arithmetic (attention
+# k-projection biases, biases just before a batch norm) holds float32
+# noise on both sides, and both must stay under TRAIN_GRAD_NOISE x the
+# largest gradient (tests/test_torch_train.py states the same on the CPU
+# against JAX). train -> serve: cli.train over TRAIN_CLI_FRAMES train and
+# val frames for TRAIN_CLI_EPOCHS epochs
+TRAIN_SEED, TRAIN_BATCH, TRAIN_LR, TRAIN_WD = 1, 4, 1e-4, 0.1
+TRAIN_SIZE, TRAIN_OUT = 1024, 256
+TRAIN_WARM, TRAIN_TIMED = 3, 20
+TRAIN_OVERFIT_STEPS, TRAIN_OVERFIT_RATIO = 30, 0.7
+TRAIN_PEFT_STEPS = 3
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_NOISE = 1e-4, 1e-3, 1e-6
+TRAIN_CLI_FRAMES, TRAIN_CLI_EPOCHS = (8, 4), 2
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -1457,10 +1489,10 @@ def phase_sam(clip):
 
 
 
-def cohort_inputs(h, w, folder, base):
-    """The config-4 path's label callable (from the clip's geometry) and
-    its companion waveforms, written as ``<base>_II.npy`` and
-    ``<base>_ART.npy`` into ``folder`` with numpy only."""
+def geometry_labels(h, w):
+    """(h, w) uint8 labels from the synthetic clip's geometry: rv (1) the
+    wall ring, av (2) a disc at the ring centre of radius
+    COHORT_AV_RADIUS x h, background (0) the rest."""
     from tee_optical_flow_torch.synthetic import echo_sector_masks
 
     geo = echo_sector_masks(h, w)
@@ -1469,6 +1501,14 @@ def cohort_inputs(h, w, folder, base):
     label_map = np.zeros((h, w), np.uint8)
     label_map[geo["wall"]] = 1
     label_map[av] = 2
+    return label_map
+
+
+def cohort_inputs(h, w, folder, base):
+    """The config-4 path's label callable (from the clip's geometry) and
+    its companion waveforms, written as ``<base>_II.npy`` and
+    ``<base>_ART.npy`` into ``folder`` with numpy only."""
+    label_map = geometry_labels(h, w)
 
     def labels(frames):
         return np.broadcast_to(label_map, np.asarray(frames).shape[:3]).copy()
@@ -2118,6 +2158,356 @@ def phase_peak_plots(layout):
                               for m, r in res.items()})
 
 
+def train_inputs(clip, folder, frames, name):
+    """A CSV list ``<name>.csv`` of ``frames`` of ``clip`` in ``folder``,
+    written as PNGs with PIL: each frame as RGB under img/, the geometry
+    labels (geometry_labels) once under mask/ for every row."""
+    from PIL import Image
+
+    h, w = clip.shape[1:]
+    for d in ("img", "mask"):
+        os.makedirs(os.path.join(folder, d), exist_ok=True)
+    Image.fromarray(geometry_labels(h, w)).save(
+        os.path.join(folder, "mask", "labels.png"))
+    rows = []
+    for k in frames:
+        Image.fromarray(np.repeat(clip[k][..., None], 3, axis=-1)).save(
+            os.path.join(folder, "img", f"{k}.png"), compress_level=1)
+        rows.append(f"{k}.png,labels.png")
+    path = os.path.join(folder, f"{name}.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def _event_ms(fn):
+    """fn() timed with CUDA events (no synchronise inside)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    return start, end
+
+
+def _median_step_ms(step, state, batches, warm, timed):
+    """Median ms per train step over ``timed`` steps after ``warm``."""
+    import torch
+
+    for k in range(warm):
+        step(state, *batches[k % len(batches)])
+    events = [_event_ms(lambda k=k: step(state, *batches[k % len(batches)]))
+              for k in range(timed)]
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def conv_backward_flop(grad_out_shape, x_shape, w_shape, bias, stride,
+                       padding, dilation, transposed, output_padding, groups,
+                       output_mask, out_shape=None, **kw):
+    """FLOPs of aten.convolution_backward for FlopCounterMode: the input
+    gradient and the weight gradient each cost what the forward
+    convolution costs (2 x batch x the weight's elements x the output's
+    positions; a transposed convolution's positions are its input's).
+    torch's own formula counts the weight gradient of a grouped
+    (depthwise) convolution as if it were dense."""
+    spatial = (x_shape if transposed else grad_out_shape)[2:]
+    one = 2 * grad_out_shape[0] * int(np.prod(w_shape)) * int(np.prod(spatial))
+    return one * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
+
+
+def _train_runtime(steps, device="cuda", **kw):
+    from tee_optical_flow_torch.config import TrainConfig
+    from tee_optical_flow_torch.train import loop
+
+    cfg = TrainConfig(num_cls=SAM_CLASSES, image_size=TRAIN_SIZE,
+                      out_size=TRAIN_OUT, b=TRAIN_BATCH, lr=TRAIN_LR,
+                      weight_decay=TRAIN_WD, epochs=1, **kw)
+    return loop.build_runtime(cfg, steps, device=device)
+
+
+def phase_train(clip, workdir, has_h5py):
+    """SAM vit_t fine-tuning on the card at full width (see TRAIN_*):
+    step time, memory, FLOPs and precision; the overfit check; the
+    adapter and LoRA policies; one step card against CPU; and cli.train
+    -> load_segmentor -> cli.process. No CUDA kernel of this repository
+    lies on the training path: its launch counts must stay 0 there."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tee_optical_flow_torch.cli import process as cli_process
+    from tee_optical_flow_torch.cli import train as cli_train
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.models import (
+        build_sam_vit_t, make_clip_segmentor,
+    )
+    from tee_optical_flow_torch.models.lora import init_lora
+    from tee_optical_flow_torch.train import checkpoint as ckpt_mod
+    from tee_optical_flow_torch.train import loop
+    from tee_optical_flow_torch.train.data import (
+        PublicDataset, batch_iterator,
+    )
+    from tee_optical_flow_torch.train.losses import dice_coeff_multi_class
+
+    assert not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    root = os.path.join(workdir, "train")
+    n = clip.shape[0]
+    lst = train_inputs(clip, root, range(n), "all")
+    t0 = time.perf_counter()
+    ds = PublicDataset(os.path.join(root, "img"), os.path.join(root, "mask"),
+                       lst, phase="train", image_size=TRAIN_SIZE,
+                       out_size=TRAIN_OUT, seed=TRAIN_SEED)
+    batches = list(batch_iterator(ds, TRAIN_BATCH, seed=TRAIN_SEED))
+    data_s = time.perf_counter() - t0
+    images, labels = batches[0]
+    assert images.shape == (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), \
+        images.shape
+    assert labels.shape == (TRAIN_BATCH, TRAIN_OUT, TRAIN_OUT), labels.shape
+    shares = np.bincount(labels.ravel(), minlength=SAM_CLASSES) / labels.size
+    log(f"--- training: vit_t {TRAIN_SIZE} -> {TRAIN_OUT}, {SAM_CLASSES} "
+        f"classes, batch "
+        f"{TRAIN_BATCH}, {len(batches)} batches of the {n}-frame clip with "
+        f"geometry labels (class shares {np.round(shares, 4).tolist()}), "
+        f"PNGs read, resized and augmented by PublicDataset in "
+        f"{data_s:.1f} s")
+
+    # step time, memory, FLOPs (vanilla, encoder updated)
+    model = build_sam_vit_t(num_classes=SAM_CLASSES, image_size=TRAIN_SIZE,
+                            seed=TRAIN_SEED)
+    init, step = loop.make_train_step(
+        model, _train_runtime(TRAIN_WARM + TRAIN_TIMED))
+    state = init()
+    n_train = sum(t.numel() for _, t in state.trainable)
+    with FlopCounterMode(display=False, custom_mapping={
+            torch.ops.aten.convolution_backward: conv_backward_flop}) as counter:
+        step.loss_and_grads(state, images, labels)
+    flops = counter.get_total_flops()
+    by_op = {str(k).split(".")[-1]: v / 1e9
+             for k, v in counter.get_flop_counts()["Global"].items()}
+    reset_counts()
+    timing = {}
+    try:
+        for tag, tf32, peak in (("f32", False, FP32_OPS_PER_S),
+                                ("tf32", True, TF32_DENSE_OPS_PER_S)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _median_step_ms(step, state, batches, TRAIN_WARM,
+                                 TRAIN_TIMED)
+            rate = flops / (ms * 1e-3)
+            timing[tag] = dict(
+                ms_per_step=ms, images_per_s=TRAIN_BATCH / (ms * 1e-3),
+                tflop_per_s=rate / 1e12, share_of_peak=rate / peak,
+                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            log(f"train step ({tag}: convolutions and products in "
+                f"{'TF32' if tf32 else 'float32'}), batch {TRAIN_BATCH}: "
+                f"median {ms:.3f} ms over {TRAIN_TIMED} steps after "
+                f"{TRAIN_WARM}, {timing[tag]['images_per_s']:.1f} images/s, "
+                f"{flops / 1e9:.1f} GFLOP per step -> {rate / 1e12:.2f} "
+                f"TFLOP/s = {100 * rate / peak:.2f}% of the "
+                f"{peak / 1e12:.0f} TFLOP/s peak; max memory allocated "
+                f"{timing[tag]['max_memory_gb']:.2f} GB")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    log("train steps, 3 in float32 under torch.profiler (the device's busy "
+        "share of their wall time, the kernels that take it):")
+    profile_clip(lambda: [step(state, *batches[k]) for k in range(3)])
+    counts = read_counts()
+    assert counts == _NONE, counts
+    log(f"train step FLOPs by operation (GFLOP, forward and backward; "
+        f"FlopCounterMode with the grouped-convolution backward counted as "
+        f"conv_backward_flop does): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in by_op.items()))
+    log(f"train: {n_train} trainable parameters; launches of this repo's "
+        f"kernels over the timed steps {counts} (none on the training "
+        f"path)")
+    del model, state, step
+
+    # overfit one batch at a constant lr
+    model = build_sam_vit_t(num_classes=SAM_CLASSES, image_size=TRAIN_SIZE,
+                            seed=TRAIN_SEED)
+    init, step = loop.make_train_step(
+        model, _train_runtime(TRAIN_OVERFIT_STEPS, warmup=False))
+    state = init()
+    losses = [float(step(state, images, labels)["total_loss"])
+              for _ in range(TRAIN_OVERFIT_STEPS)]
+    log(f"overfit, {TRAIN_OVERFIT_STEPS} steps on one batch at lr "
+        f"{TRAIN_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(ratio {losses[-1] / losses[0]:.3f}, bound "
+        f"{TRAIN_OVERFIT_RATIO}); every 5th: "
+        f"{[round(v, 4) for v in losses[::5]]}")
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] <= TRAIN_OVERFIT_RATIO * losses[0], losses
+    overfit = dict(first=losses[0], last=losses[-1])
+    del model, state, step
+
+    # the other policies
+    peft = {}
+    for policy in ("adapter", "lora"):
+        build = (dict(adapter_stages=(1, 2, 3), use_decoder_adapter=True)
+                 if policy == "adapter" else {})
+        model = build_sam_vit_t(num_classes=SAM_CLASSES,
+                                image_size=TRAIN_SIZE, seed=TRAIN_SEED,
+                                **build)
+        init, step = loop.make_train_step(
+            model, _train_runtime(TRAIN_WARM + TRAIN_PEFT_STEPS),
+            finetune_type=policy)
+        state = init(init_lora(model, rank=4, seed=TRAIN_SEED)
+                     if policy == "lora" else None)
+        n_p = sum(t.numel() for _, t in state.trainable)
+        ms = _median_step_ms(step, state, batches, TRAIN_WARM,
+                             TRAIN_PEFT_STEPS)
+        peft[policy] = dict(ms_per_step=ms, trainable=n_p)
+        log(f"train {policy} (encoder and decoder): {n_p} trainable "
+            f"parameters, median {ms:.3f} ms per step over "
+            f"{TRAIN_PEFT_STEPS} steps after {TRAIN_WARM} (float32)")
+        del model, state, step
+
+    # one step, card against CPU, strict float32
+    x1, y1 = images[:1], labels[:1]
+    grads, losses = {}, {}
+    for key, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = build_sam_vit_t(num_classes=SAM_CLASSES,
+                                image_size=TRAIN_SIZE, seed=TRAIN_SEED,
+                                device=dev)
+        rt = _train_runtime(1, device=dev)
+        init, step = loop.make_train_step(model, rt)
+        state = init()
+        t0 = time.perf_counter()
+        metrics, g = step.loss_and_grads(state, x1, y1)
+        losses[key] = float(metrics["total_loss"])
+        grads[key] = {k: v.cpu() for k, v in g.items()}
+        if key == "cpu":
+            cpu_s = time.perf_counter() - t0
+        else:
+            dsc = loop.make_eval_step(model, rt, SAM_CLASSES)(state, x1,
+                                                              y1)[1]
+            with torch.no_grad():
+                xd = torch.from_numpy(x1).cuda().permute(0, 3, 1, 2)
+                logits = model(xd.contiguous())[0]
+            yd = torch.from_numpy(y1).long()
+            dsc_card = dice_coeff_multi_class(logits.argmax(1), yd.cuda(),
+                                              SAM_CLASSES)
+            dsc_cpu = dice_coeff_multi_class(logits.cpu().argmax(1), yd,
+                                             SAM_CLASSES)
+        del model, state, step
+    assert sorted(grads["cpu"]) == sorted(grads["card"])
+    gmax = max(float(v.abs().max()) for v in grads["cpu"].values())
+    worst, noise = 0.0, []
+    for name, ref in grads["cpu"].items():
+        got = grads["card"][name]
+        scale = float(ref.abs().max())
+        if scale < TRAIN_GRAD_NOISE * gmax:
+            noise.append(name)
+            assert float(got.abs().max()) < TRAIN_GRAD_NOISE * gmax, name
+            continue
+        rel = float((got - ref).abs().max()) / scale
+        worst = max(worst, rel)
+        assert rel <= TRAIN_GRAD_REL, (name, rel)
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"train step card vs CPU, batch 1 at {TRAIN_SIZE}, strict "
+        f"float32: loss "
+        f"{losses['card']:.7f} vs {losses['cpu']:.7f} (rel {loss_rel:.3g}, "
+        f"bound {TRAIN_LOSS_REL}); {len(grads['cpu'])} gradients, worst "
+        f"max-abs error {worst:.3g} of the tensor's max-abs (bound "
+        f"{TRAIN_GRAD_REL}), {len(noise)} zero-in-exact-arithmetic tensors "
+        f"under {TRAIN_GRAD_NOISE} x the largest gradient; eval DSC "
+        f"{float(dsc):.6f}, recomputed on the CPU from the card's logits "
+        f"{float(dsc_cpu):.6f}; CPU step {cpu_s:.1f} s")
+    assert loss_rel <= TRAIN_LOSS_REL, losses
+    assert float(dsc) == float(dsc_card) == float(dsc_cpu), \
+        (float(dsc), float(dsc_card), float(dsc_cpu))
+
+    # cli.train -> checkpoint_best.pth -> load_segmentor -> cli.process
+    n_tr, n_val = TRAIN_CLI_FRAMES
+    tr_list = train_inputs(clip, root, range(n_tr), "train")
+    val_list = train_inputs(clip, root, range(n_tr, n_tr + n_val), "val")
+    run = os.path.join(root, "run")
+    argv = ["--dir_checkpoint", run, "--img_folder",
+            os.path.join(root, "img"), "--mask_folder",
+            os.path.join(root, "mask"), "--train_img_list", tr_list,
+            "--val_img_list", val_list, "--num_cls", str(SAM_CLASSES),
+            "--epochs", str(TRAIN_CLI_EPOCHS), "-b", str(TRAIN_BATCH),
+            "--lr", str(TRAIN_LR), "--warmup_period", "2", "--seed",
+            str(TRAIN_SEED), "--image_size", str(TRAIN_SIZE), "--out_size",
+            str(TRAIN_OUT), "--device", "cuda"]
+    saved = []
+    inner_save = ckpt_mod.save_checkpoint
+
+    def keep_copy(dir_checkpoint, model, *args, **kw):
+        saved.append(copy.deepcopy(model))
+        return inner_save(dir_checkpoint, model, *args, **kw)
+
+    t0 = time.perf_counter()
+    with substituted(ckpt_mod, "save_checkpoint", keep_copy):
+        rc = cli_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    assert rc == 0 and saved, (rc, len(saved))
+    files = sorted(os.listdir(run))
+    assert {"args.json", "checkpoint_best.pth"} <= set(files), files
+    log(f"cli.train {' '.join(argv[-20:])}: rc {rc} in {train_s:.1f} s, "
+        f"{len(saved)} best-DSC checkpoint(s); {run} holds {files}")
+    t0 = time.perf_counter()
+    served = cli_process.load_segmentor(run, model_dtype="float32")
+    clip_dev = torch.from_numpy(np.ascontiguousarray(clip)).cuda()
+    got = served.labels_device(clip_dev, clip.shape[1:])
+    ref = make_clip_segmentor(saved[-1]).labels_device(clip_dev,
+                                                       clip.shape[1:])
+    torch.cuda.synchronize()
+    agree = float((got == ref).float().mean())
+    log(f"load_segmentor({run}) against the trained model in memory: "
+        f"{agree:.6f} of the {n}-frame clip's labels equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    assert agree == 1.0, agree
+
+    dcm_dir, out = os.path.join(root, "dcm"), os.path.join(root, "out")
+    os.makedirs(dcm_dir)
+    write_dicom_clip(os.path.join(dcm_dir, "trained.dcm"),
+                     np.repeat(clip[..., None], 3, axis=-1),
+                     frame_rate=FPS, pixel_spacing=SPACING_CM)
+    layouts = {}
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+
+        layouts[save_path] = optical_flow_layout(
+            flow_arr, echo_gray, mask_dict, metadata, waveforms, **kw)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_process.main(
+        ["--dcm_folder", dcm_dir, "--save_folder", out, "--checkpoint_dir",
+         run, "--mode", "RVIO_2class"],
+        _save_fn=None if has_h5py else capture)
+    torch.cuda.synchronize()
+    process_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"cli.process --checkpoint_dir {run} --mode RVIO_2class on one "
+        f"{n}x{clip.shape[1]}x{clip.shape[2]} DICOM: rc {rc} in "
+        f"{process_s:.1f} s; launches {counts}")
+    assert rc == 0, rc
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    if not has_h5py:
+        (layout,) = layouts.values()
+        check_schema(saved_of_layout(layout), n, *clip.shape[1:],
+                     "RVIO_2class")
+    return dict(step=timing, gflop_per_step=flops / 1e9, gflop_by_op=by_op,
+                trainable=n_train, overfit=overfit, peft=peft,
+                card_vs_cpu=dict(loss_rel=loss_rel, worst_grad_rel=worst,
+                                 noise_tensors=len(noise), dsc=float(dsc)),
+                cli_train_s=train_s, cli_process_s=process_s,
+                serve_agree=agree, data_s=data_s)
+
+
 def main() -> int:
     import torch
 
@@ -2173,6 +2563,8 @@ def main() -> int:
     del k1_args, k3_args, k2_args
     phase_saliency(clip)
     sam = phase_sam(clip)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        train = phase_train(clip, workdir, has_h5py)
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
     k2_counts = results["TVL1 600x800"][0]
@@ -2251,6 +2643,7 @@ def main() -> int:
     log(f"config 4 row: {json.dumps(cohort['row'])}")
     log("config 5: " + json.dumps(config5))
     log("analysis entry points: " + json.dumps(analysis))
+    log("training: " + json.dumps(train))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,14 @@ with the TV-L1 loops (``csrc/tvl1.cu``) and the DeepFlow SOR solve
 (``csrc/deepflow.cu``) as CUDA kernels; and the gated cohort analysis
 (``dataset``, ``analysis``, ``signal``, ``batch.cohort``): ECG- or
 arterial-gated cycles, the radial/longitudinal decomposition about the AV
-centroid, the S/e'/l'/a' peaks and the 69-value cohort row.
+centroid, the S/e'/l'/a' peaks and the 69-value cohort row; and the
+segmentor's fine-tuning (``train``, ``cli.train``): AdamW steps to a
+best-DSC ``checkpoint_best.pth`` that ``cli.process`` serves.
 
 Subpackage map (the JAX package's, as far as it is ported):
   config, exceptions    typed config tree (PipelineConfig, DeviceConfig,
-                        the flow and analysis configs) + error taxonomy
+                        TrainConfig, the flow and analysis configs) +
+                        error taxonomy
   core, cache           bucketing, the device rule, the kernel build
                         cache; LRU caching by content hash
   io/                   DICOM, HDF5 (schema-compatible), waveforms, CSV
@@ -26,15 +29,17 @@ Subpackage map (the JAX package's, as far as it is ported):
                         histograms, smoothing
   signal/, peak_detection  cycles, ECG, peaks; S/e'/l'/a' extraction
   analysis/             centroid, radial/longitudinal projection, histograms
-  models/               SAM vit_t + torch checkpoint import
+  models/               SAM vit_t (adapters, LoRA) + torch checkpoint import
+  train/                SAM fine-tuning: losses, schedule, AdamW loop,
+                        checkpoints, CSV dataset, prompts, eval, GAN
   flow/                 DICOM -> masks -> flow -> HDF5 production pipeline
   viz/                  heatmaps, peak-line plots, overlay video frames
   batch/, api           cohort orchestration; analyze, plot, batch
   parallel/             host-side sharding of file lists
-  cli/                  process, peak_plots, analyze
-Not ported yet (ROADMAP.md, queue 1): the multi-card paths, compressed
-DICOM frames, the ViT-Det encoders and int8 weights, TV-L1 gamma,
-training.
+  cli/                  process, peak_plots, analyze, train, val
+Not ported yet (ROADMAP.md, queue 1): the multi-card paths (training on
+several cards among them), compressed DICOM frames, the ViT-Det encoders
+and int8 weights, TV-L1 gamma.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu`` on the command line), where the kernels' plain PyTorch

@@ -98,20 +98,28 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
     ``models/registry``, on ``device`` (``cuda`` unless the caller asks
     for ``cpu``), computing in ``model_dtype``, in micro-batches of 4.
     Without a checkpoint the weights are the registry's seeded random
-    ones, as in the JAX package.
+    ones, as in the JAX package. A directory written by the port's
+    trainer (``cli.train``) serves as it is: args.json's adapter
+    placement rebuilds an adapter run's model, and a LoRA run's factors
+    are merged on load (models/convert.load_torch_checkpoint). The
+    segmentor runs at the registry's image size (1024), as the JAX
+    package's does, whatever size the run trained at.
 
-    Not ported yet, and refused with NotImplementedError: an orbax
-    ``checkpoint_best/`` snapshot of the JAX trainer with no ``.pth``
-    (ROADMAP.md, queue 1, item 8: training), ``model_dtype="int8"`` (item
-    4), ``data_axis > 1`` (item 6, its distributed remainder) and the
-    vit_b/l/h encoders (item 4, refused by the registry)."""
+    Refused with NotImplementedError: an orbax ``checkpoint_best/``
+    snapshot of the JAX trainer with no ``.pth`` (orbax needs JAX; the
+    port's trainer writes torch files), ``model_dtype="int8"`` (ROADMAP.md,
+    queue 1, item 4), ``data_axis > 1`` (item 6) and the vit_b/l/h
+    encoders (item 4, refused by the registry)."""
     import torch
 
     from ..exceptions import ConfigurationError
     from ..models.registry import sam_model_registry
     from ..models.sam import make_clip_segmentor
 
+    from ..train.checkpoint import model_kwargs_of_run
+
     num_cls = 9
+    run_args = {}
     args_path = os.path.join(checkpoint_dir, "args.json")
     if os.path.exists(args_path):
         with open(args_path) as f:
@@ -138,9 +146,11 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
         if os.path.isdir(os.path.join(checkpoint_dir, "checkpoint_best")):
             raise NotImplementedError(
                 f"{checkpoint_dir} holds an orbax checkpoint_best/ snapshot "
-                "of the JAX trainer and no checkpoint_best.pth; orbax "
-                "checkpoints come with training, which is not ported yet: "
-                "ROADMAP.md, queue 1, item 8")
+                "of the JAX trainer and no checkpoint_best.pth: reading "
+                "orbax needs JAX, which the port does not import. The "
+                "port's trainer (ROADMAP.md, queue 1, item 8) writes "
+                "checkpoint_best.pth: train with cli.train, or convert the "
+                "snapshot with the JAX package")
         logger.warning("no checkpoint_best.pth in %s: the segmentor has "
                        "seeded random weights", checkpoint_dir)
         torch_ckpt = None
@@ -148,7 +158,8 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
     dtype = torch.float32 if model_dtype == "float32" else torch.bfloat16
     model = sam_model_registry[arch](num_classes=num_cls,
                                      checkpoint=torch_ckpt, dtype=dtype,
-                                     device=device)
+                                     device=device,
+                                     **model_kwargs_of_run(run_args))
     return make_clip_segmentor(model, micro_batch=4)
 
 

@@ -5,10 +5,11 @@ analysis-side configurations (``CardiacCycleConfig``,
 ``VisualizationConfig``, ``ProcessingConfig``, ``PeakDetectionConfig``,
 ``AnalysisConfig``, ``CardiacCycleMethodConfig``), the run bundle
 ``PipelineConfig`` with its ``DeviceConfig`` and ``validate_pipeline_config``,
-their preset factories and the JSON helpers (``config.py:28-333,376-477``
-there; ``TrainConfig`` waits for training). The fields, names and defaults
-are the same, so a JSON written by the JAX package's ``to_json`` loads
-here field for field, and back.
+the fine-tuning run's ``TrainConfig``, their preset factories and the JSON
+helpers (``config.py:28-477`` there). The fields, names and defaults are
+the same, so a JSON written by the JAX package's ``to_json`` (a
+``PipelineConfig`` file or a training run's ``args.json``) loads here
+field for field, and back.
 
 ``tvl1_use_pallas`` keeps its name for that compatibility. In the port it
 selects the TPU reference's per-size choice of stopping rule
@@ -296,6 +297,49 @@ class DeviceConfig(_JsonMixin):
     # points here skips nvcc (core.enable_compilation_cache); None ->
     # build/kernels/ in the checkout
     compilation_cache_dir: Optional[str] = None
+
+
+@dataclass
+class TrainConfig(_JsonMixin):
+    """SAM fine-tuning run config (parity with finetune-SAM/cfg.py:3-77);
+    the trainer writes it as the run directory's ``args.json``."""
+
+    arch: Literal["vit_h", "vit_l", "vit_b", "vit_t"] = "vit_t"
+    finetune_type: Literal["vanilla", "adapter", "lora"] = "vanilla"
+    num_cls: int = 2
+    image_size: int = 1024
+    out_size: int = 256
+    epochs: int = 200
+    b: int = 4                      # batch size (reference flag name)
+    lr: float = 1e-4
+    weight_decay: float = 0.1
+    warmup: bool = True
+    warmup_period: int = 200
+    poly_power: float = 0.9
+    lora_rank: int = 4
+    # PEFT placement (reference cfg.py:59-67): which encoder blocks (or
+    # vit_t stages) get adapters / LoRA factors; [] = every block for LoRA
+    lora_layers: Optional[List[int]] = None
+    if_update_encoder: bool = True
+    if_encoder_lora_layer: bool = False
+    if_decoder_lora_layer: bool = False
+    if_encoder_adapter: bool = False
+    encoder_adapter_depths: List[int] = field(
+        default_factory=lambda: [0, 1, 10, 11])
+    if_mask_decoder_adapter: bool = False
+    eval_interval: int = 2
+    early_stop_patience: int = 20
+    dir_checkpoint: str = "checkpoints"
+    targets: str = "multi_all"
+    seed: int = 0
+    # TinyViT layer-wise lr decay (reference tiny_vit_sam.py:655-687,
+    # rate 0.8 from build_sam.py:77); 1.0 disables
+    layer_lr_decay: float = 1.0
+    # data-parallel cards (more than one is not ported yet: the trainer
+    # refuses it), gradient accumulation steps, recompute in the backward
+    mesh_data_axis: Optional[int] = None
+    grad_accum: int = 1
+    remat: bool = False
 
 
 @dataclass

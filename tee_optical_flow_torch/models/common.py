@@ -98,12 +98,49 @@ class MLPBlock(nn.Module):
         return linear(h, self.lin2, self.dtype)
 
 
+class Adapter(nn.Module):
+    """Bottleneck adapter for PEFT (the JAX package's ``Adapter``; the
+    reference's Medical-SAM-Adapter keys ``D_fc1``/``D_fc2``): down to
+    ``int(dim * mlp_ratio)`` channels, GELU, back up, with the input added
+    when ``skip_connect``. Computes in float32 whatever the model's
+    compute type, as the JAX package's (its ``dtype`` default)."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 0.25,
+                 skip_connect: bool = True) -> None:
+        super().__init__()
+        hidden = max(1, int(dim * mlp_ratio))
+        self.D_fc1 = nn.Linear(dim, hidden)
+        self.D_fc2 = nn.Linear(hidden, dim)
+        self.skip_connect = skip_connect
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = gelu(linear(x, self.D_fc1, torch.float32))
+        h = linear(h, self.D_fc2, torch.float32)
+        return x + h if self.skip_connect else h
+
+
+# flax BatchNorm's momentum in the JAX package's ConvBN: running statistics
+# move to BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch
+BN_MOMENTUM = 0.9
+
+
 class Conv2d_BN(nn.Module):
-    """Conv2d without bias, then eval-mode BatchNorm (eps 1e-5) on the
-    running statistics (reference tiny_vit_sam.py Conv2d_BN; keys ``c``
-    and ``bn``). The convolution runs in ``dtype``; the norm computes
-    (x - mean) * (rsqrt(var + eps) * weight) + bias in float32 and returns
-    float32, as flax ``BatchNorm(dtype=float32)`` does."""
+    """Conv2d without bias, then BatchNorm (eps 1e-5) (reference
+    tiny_vit_sam.py Conv2d_BN; keys ``c`` and ``bn``). The convolution
+    runs in ``dtype``; the norm computes (x - mean) * (rsqrt(var + eps) *
+    weight) + bias in float32 and returns float32, as flax
+    ``BatchNorm(dtype=float32)`` does.
+
+    ``train=False`` normalises by the running statistics. ``train=True``
+    has flax ``BatchNorm(use_running_average=False)``'s semantics: the
+    batch mean and the biased batch variance over (N, H, W), in float32,
+    the variance as E[x^2] - E[x]^2 clipped at 0; the new running
+    statistics, ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``
+    with the biased variance (``nn.BatchNorm2d`` would store the unbiased
+    one), are kept in ``pending_stats`` and written into the buffers only
+    by ``commit_batch_stats``. A forward that runs again under
+    ``torch.utils.checkpoint`` recomputes the same pending values, so the
+    statistics move once per step, as flax's mutable ``batch_stats``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -113,10 +150,37 @@ class Conv2d_BN(nn.Module):
                            groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
         self.dtype = dtype
+        self.pending_stats = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = conv2d(x, self.c, self.dtype).to(torch.float32)
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        return ((y - bn.running_mean[:, None, None]) * mul[:, None, None]
+        if train:
+            mean = y.mean((0, 2, 3))
+            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                self.pending_stats = (
+                    BN_MOMENTUM * bn.running_mean
+                    + (1 - BN_MOMENTUM) * mean.detach(),
+                    BN_MOMENTUM * bn.running_var
+                    + (1 - BN_MOMENTUM) * var.detach())
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return ((y - mean[:, None, None]) * mul[:, None, None]
                 + bn.bias[:, None, None])
+
+
+def commit_batch_stats(model: nn.Module) -> int:
+    """Write every Conv2d_BN's pending running statistics (from its last
+    train-mode forward) into its buffers; returns how many moved."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Conv2d_BN) and m.pending_stats is not None:
+            mean, var = m.pending_stats
+            m.bn.running_mean.copy_(mean)
+            m.bn.running_var.copy_(var)
+            m.pending_stats = None
+            n += 1
+    return n

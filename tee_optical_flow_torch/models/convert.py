@@ -14,6 +14,8 @@ takes. Layouts:
   flax Dense kernel (I, O)                   -> torch Linear weight (O, I)
   params bn.{scale, bias} + batch_stats      -> BatchNorm weight, bias,
     bn.{mean, var}                              running_mean, running_var
+  adapter {down, up} (space_adapter,         -> D_fc1, D_fc2 of
+    mlp_adapter)                                Space_Adapter, MLP_Adapter
 
 ``load_torch_checkpoint`` loads a reference ``.pth`` (the fine-tuned
 checkpoint_best.pth or the public mobile_sam.pt), whose keys the port's
@@ -66,6 +68,10 @@ class _StateDict:
     def norm2d(self, key: str, p) -> None:
         self.put(key + ".weight", p["weight"])
         self.put(key + ".bias", p["bias"])
+
+    def adapter(self, key: str, p) -> None:
+        self.dense(key + ".D_fc1", p["down"])
+        self.dense(key + ".D_fc2", p["up"])
 
     def conv_bn(self, key: str, p, s) -> None:
         self.conv(key + ".c", p["c"])
@@ -120,6 +126,9 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
             out.norm(t + ".mlp.norm", b["mlp_norm"])
             out.dense(t + ".mlp.fc1", b["mlp"]["lin1"])
             out.dense(t + ".mlp.fc2", b["mlp"]["lin2"])
+            if "space_adapter" in b:
+                out.adapter(t + ".Space_Adapter", b["space_adapter"])
+                out.adapter(t + ".MLP_Adapter", b["mlp_adapter"])
     out.conv(p + "neck.0", enc["neck_conv1"])
     out.norm2d(p + "neck.1", enc["neck_ln1"])
     out.conv(p + "neck.2", enc["neck_conv2"])
@@ -165,6 +174,8 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
             out.norm(f"{t}.norm{n}", lay[f"norm{n}"])
         out.dense(t + ".mlp.lin1", lay["mlp"]["lin1"])
         out.dense(t + ".mlp.lin2", lay["mlp"]["lin2"])
+        if "mlp_adapter" in lay:
+            out.adapter(t + ".MLP_Adapter", lay["mlp_adapter"])
     for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
         out.dense(f"{p}transformer.final_attn_token_to_image.{proj}",
                   tf["final_attn_token_to_image"][proj])
@@ -186,12 +197,27 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module
                           ) -> torch.nn.Module:
     """Load a reference ``.pth`` into ``model`` with ``strict=True``: a
     state dict, a module, or a dict holding the state dict under
-    ``"model"``. The file is unpickled in full, as the reference saves
-    whole objects: load only checkpoints from a trusted source."""
+    ``"model"``. A LoRA run's checkpoint (train/checkpoint.py) also holds
+    its factors under ``"lora"`` (and the fused-qkv head counts under
+    ``"heads_by_dim"``): they are merged into the base weights
+    (models/lora.merge_lora). The file is unpickled in full, as the
+    reference saves whole objects: load only checkpoints from a trusted
+    source. The model's adapters that the checkpoint lacks (one of a
+    model without them, such as mobile_sam.pt) keep their own weights;
+    every other key must match."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
+    lora = sd.get("lora") if isinstance(sd.get("lora"), dict) else None
+    heads_by_dim = sd.get("heads_by_dim")
     if "model" in sd and isinstance(sd["model"], dict):
         sd = sd["model"]
+    if lora:
+        from .lora import merge_lora
+
+        sd = dict(sd)
+        sd.update(merge_lora(sd, lora, heads_by_dim))
+    sd = {**{k: v for k, v in model.state_dict().items()
+             if "_Adapter." in k and k not in sd}, **sd}
     model.load_state_dict(sd, strict=True)
     return model

@@ -37,14 +37,14 @@ class MLP(nn.Module):
 class MaskDecoder(nn.Module):
     def __init__(self, transformer_dim: int = 256,
                  num_multimask_outputs: int = 3, iou_head_depth: int = 3,
-                 iou_head_hidden_dim: int = 256,
+                 iou_head_hidden_dim: int = 256, use_adapter: bool = False,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.num_mask_tokens = num_multimask_outputs + 1
         self.dtype = dtype
         self.transformer = TwoWayTransformer(
             depth=2, embedding_dim=transformer_dim, num_heads=8,
-            mlp_dim=2048, dtype=dtype)
+            mlp_dim=2048, use_adapter=use_adapter, dtype=dtype)
         self.iou_token = nn.Embedding(1, transformer_dim)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens,
                                         transformer_dim)

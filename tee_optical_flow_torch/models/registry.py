@@ -4,8 +4,9 @@
 (``cuda`` unless the caller asks for ``cpu``), with seeded random weights
 or a reference checkpoint's. ``num_classes`` is the decoder's
 num_multimask_outputs, as the reference wires it (build_sam.py:85-97).
-The ViT-Det encoders (vit_b, vit_l, vit_h) and the PEFT adapters are not
-ported yet and raise.
+``adapter_stages`` and ``use_decoder_adapter`` add the PEFT adapters
+(models/common.Adapter). The ViT-Det encoders (vit_b, vit_l, vit_h) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -69,14 +70,14 @@ def build_sam_vit_t(num_classes: int = 3, image_size: int = 1024,
     6, 2), heads (2, 4, 5, 10), windows (7, 7, 14, 7)), computing in
     ``dtype`` (float32 parameters either way), in eval mode on
     ``device``. ``checkpoint`` is a reference torch ``.pth``
-    (models/convert.load_torch_checkpoint)."""
-    if adapter_stages or use_decoder_adapter:
-        raise NotImplementedError(
-            "the PEFT adapters (adapter_stages, use_decoder_adapter) are not "
-            "ported yet: ROADMAP.md, queue 1, item 8 (training)")
+    (models/convert.load_torch_checkpoint). ``adapter_stages`` are the
+    TinyViT stages (1-3; stage 0 holds convolutions only) whose blocks get
+    adapters, ``use_decoder_adapter`` gives the decoder's its own."""
     dev = resolve_device(device)
-    model = Sam(TinyViT(img_size=image_size, dtype=dtype),
-                num_classes=num_classes, image_size=image_size, dtype=dtype)
+    model = Sam(TinyViT(img_size=image_size,
+                        adapter_stages=tuple(adapter_stages), dtype=dtype),
+                num_classes=num_classes, image_size=image_size,
+                use_decoder_adapter=use_decoder_adapter, dtype=dtype)
     init_weights(model, seed)
     if checkpoint:
         from .convert import load_torch_checkpoint

@@ -25,10 +25,12 @@ from .prompt_encoder import PromptEncoder
 
 class Sam(nn.Module):
     """image_encoder + prompt_encoder + mask_decoder (keys as the
-    reference torch Sam)."""
+    reference torch Sam). ``use_decoder_adapter`` gives the decoder
+    transformer's blocks their ``MLP_Adapter``."""
 
     def __init__(self, image_encoder: nn.Module, num_classes: int = 3,
                  image_size: int = 1024, embed_dim: int = 256,
+                 use_decoder_adapter: bool = False,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         grid = image_size // 16
@@ -38,14 +40,18 @@ class Sam(nn.Module):
         self.prompt_encoder = PromptEncoder(
             embed_dim, (grid, grid), (image_size, image_size), 16,
             dtype=dtype)
-        self.mask_decoder = MaskDecoder(embed_dim, num_classes, dtype=dtype)
+        self.mask_decoder = MaskDecoder(embed_dim, num_classes,
+                                        use_adapter=use_decoder_adapter,
+                                        dtype=dtype)
 
     def forward(self, images: torch.Tensor, points=None, boxes=None,
-                masks=None, multimask_output: bool = True
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                masks=None, multimask_output: bool = True,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """images (B, 3, S, S), already normalised -> (logits (B, K, S/4,
-        S/4) float32, iou_pred (B, K))."""
-        embeddings = self.image_encoder(images)
+        S/4) float32, iou_pred (B, K)). ``train`` normalises the
+        encoder's batch norms by the batch (the JAX package's
+        ``Sam.__call__(train=)``); see models/common.Conv2d_BN."""
+        embeddings = self.image_encoder(images, train=train)
         sparse, dense = self.prompt_encoder(points, boxes, masks,
                                             batch_size=images.shape[0])
         return self.mask_decoder(embeddings, self.prompt_encoder.

@@ -6,6 +6,11 @@ the reference torch state-dict keys (tiny_vit_sam.py: ``patch_embed.seq``,
 vit_t: embed_dims (64, 128, 160, 320), depths (2, 2, 6, 2), heads (2, 4,
 5, 10), windows (7, 7, 14, 7); a 1024x1024 input gives a 64x64x256
 embedding. The cast points follow the JAX package (see models/common.py).
+Every forward takes ``train``: its Conv2d_BN layers then normalise by the
+batch statistics (models/common.Conv2d_BN). ``adapter_stages`` gives the
+blocks of those stages a ``Space_Adapter`` after the attention and an
+``MLP_Adapter`` beside the MLP (the JAX package's ``space_adapter`` and
+``mlp_adapter``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Conv2d_BN, LayerNorm2d, conv2d, gelu, layer_norm, linear
+from .common import (
+    Adapter, Conv2d_BN, LayerNorm2d, conv2d, gelu, layer_norm, linear,
+)
 
 
 @functools.lru_cache(maxsize=8)
@@ -108,10 +115,10 @@ class MBConv(nn.Module):
                                dtype=dtype)
         self.conv3 = Conv2d_BN(hidden, dim, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = gelu(self.conv1(x))
-        y = gelu(self.conv2(y))
-        return gelu(self.conv3(y) + x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = gelu(self.conv1(x, train))
+        y = gelu(self.conv2(y, train))
+        return gelu(self.conv3(y, train) + x)
 
 
 class PatchMerging(nn.Module):
@@ -128,8 +135,9 @@ class PatchMerging(nn.Module):
                                groups=out_dim, dtype=dtype)
         self.conv3 = Conv2d_BN(out_dim, out_dim, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv3(gelu(self.conv2(gelu(self.conv1(x)))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = gelu(self.conv2(gelu(self.conv1(x, train)), train))
+        return self.conv3(y, train)
 
 
 def window_partition(x: torch.Tensor, ws: int):
@@ -156,10 +164,13 @@ def window_unpartition(x: torch.Tensor, ws: int, b: int, h: int, w: int,
 
 class TinyViTBlock(nn.Module):
     """Windowed attention, then a depthwise local conv, then the MLP; on
-    an NCHW map."""
+    an NCHW map. With ``use_adapter`` the attention's output goes through
+    ``Space_Adapter`` (with its skip) and half of ``MLP_Adapter`` (no
+    skip) of the MLP's input joins the MLP's residual sum."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, local_conv_size: int = 3,
+                 use_adapter: bool = False,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.window_size = window_size
@@ -169,8 +180,12 @@ class TinyViTBlock(nn.Module):
         self.local_conv = Conv2d_BN(dim, dim, local_conv_size, 1,
                                     local_conv_size // 2, groups=dim,
                                     dtype=dtype)
+        if use_adapter:
+            self.Space_Adapter = Adapter(dim)
+            self.MLP_Adapter = Adapter(dim, skip_connect=False)
+        self.use_adapter = use_adapter
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b, c, h, w = x.shape
         ws = self.window_size
         tokens = x.permute(0, 2, 3, 1)  # (B, H, W, C)
@@ -179,10 +194,17 @@ class TinyViTBlock(nn.Module):
         else:
             wins, dims = window_partition(tokens, ws)
             y = window_unpartition(self.attn(wins), ws, b, h, w, dims)
+        if self.use_adapter:
+            y = self.Space_Adapter(y.reshape(b, h * w, c)).reshape(b, h, w,
+                                                                   c)
         x = x + y.permute(0, 3, 1, 2)
-        x = self.local_conv(x)
+        x = self.local_conv(x, train)
         tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        tokens = tokens + self.mlp(tokens)
+        if self.use_adapter:
+            tokens = (tokens + self.mlp(tokens)
+                      + 0.5 * self.MLP_Adapter(tokens))
+        else:
+            tokens = tokens + self.mlp(tokens)
         return tokens.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
@@ -195,10 +217,10 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
-        return x if self.downsample is None else self.downsample(x)
+            x = blk(x, train)
+        return x if self.downsample is None else self.downsample(x, train)
 
 
 class _PatchEmbed(nn.Module):
@@ -210,8 +232,8 @@ class _PatchEmbed(nn.Module):
             Conv2d_BN(3, d0 // 2, 3, 2, 1, dtype=dtype), nn.GELU(),
             Conv2d_BN(d0 // 2, d0, 3, 2, 1, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.seq[2](gelu(self.seq[0](x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.seq[2](gelu(self.seq[0](x, train)), train)
 
 
 class TinyViT(nn.Module):
@@ -228,6 +250,7 @@ class TinyViT(nn.Module):
                  window_sizes: Sequence[int] = (7, 7, 14, 7),
                  mlp_ratio: float = 4.0, neck_dim: int = 256,
                  keep_resolution_stage: int = 2, head_classes: int = 1000,
+                 adapter_stages: Sequence[int] = (),
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.dtype = dtype
@@ -240,6 +263,7 @@ class TinyViT(nn.Module):
             dim = embed_dims[stage]
             blocks = [TinyViTBlock(dim, num_heads[stage],
                                    window_sizes[stage], mlp_ratio,
+                                   use_adapter=stage in adapter_stages,
                                    dtype=dtype)
                       for _ in range(depths[stage])]
             merge = None if stage == 3 else PatchMerging(
@@ -256,9 +280,9 @@ class TinyViT(nn.Module):
             nn.Conv2d(neck_dim, neck_dim, 3, padding=1, bias=False),
             LayerNorm2d(neck_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.patch_embed(x, train)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, train)
         x = self.neck[1](conv2d(x, self.neck[0], self.dtype))
         return self.neck[3](conv2d(x, self.neck[2], self.dtype))

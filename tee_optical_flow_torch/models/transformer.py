@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from .common import MLPBlock, layer_norm, linear
+from .common import Adapter, MLPBlock, layer_norm, linear
 
 
 class DownsampledAttention(nn.Module):
@@ -56,11 +56,15 @@ class DownsampledAttention(nn.Module):
 
 class TwoWayAttentionBlock(nn.Module):
     """Token self-attention, token->image cross-attention, MLP (ReLU),
-    image->token cross-attention, each followed by a layer norm."""
+    image->token cross-attention, each followed by a layer norm. With
+    ``use_adapter`` the MLP's output goes through ``MLP_Adapter`` (with
+    its skip) before the residual sum (the JAX package's
+    ``mlp_adapter``)."""
 
     def __init__(self, embedding_dim: int, num_heads: int,
                  mlp_dim: int = 2048, attention_downsample_rate: int = 2,
                  skip_first_layer_pe: bool = False,
+                 use_adapter: bool = False,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.self_attn = DownsampledAttention(embedding_dim, num_heads,
@@ -76,6 +80,7 @@ class TwoWayAttentionBlock(nn.Module):
         self.cross_attn_image_to_token = DownsampledAttention(
             embedding_dim, num_heads, attention_downsample_rate, dtype=dtype)
         self.skip_first_layer_pe = skip_first_layer_pe
+        self.MLP_Adapter = Adapter(embedding_dim) if use_adapter else None
 
     def forward(self, queries, keys, query_pe, key_pe):
         if self.skip_first_layer_pe:
@@ -90,7 +95,10 @@ class TwoWayAttentionBlock(nn.Module):
         queries = queries + self.cross_attn_token_to_image(q, k, keys)
         queries = layer_norm(queries, self.norm2)
 
-        queries = layer_norm(queries + self.mlp(queries), self.norm3)
+        mlp_out = self.mlp(queries)
+        if self.MLP_Adapter is not None:
+            mlp_out = self.MLP_Adapter(mlp_out)
+        queries = layer_norm(queries + mlp_out, self.norm3)
 
         q = queries + query_pe
         k = keys + key_pe
@@ -103,12 +111,14 @@ class TwoWayTransformer(nn.Module):
     def __init__(self, depth: int = 2, embedding_dim: int = 256,
                  num_heads: int = 8, mlp_dim: int = 2048,
                  attention_downsample_rate: int = 2,
+                 use_adapter: bool = False,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.layers = nn.ModuleList(
             TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim,
                                  attention_downsample_rate,
-                                 skip_first_layer_pe=(i == 0), dtype=dtype)
+                                 skip_first_layer_pe=(i == 0),
+                                 use_adapter=use_adapter, dtype=dtype)
             for i in range(depth))
         self.final_attn_token_to_image = DownsampledAttention(
             embedding_dim, num_heads, attention_downsample_rate, dtype=dtype)

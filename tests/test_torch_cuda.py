@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, the block loop with K2, the median and K3)
-against their plain PyTorch versions, and the SAM segmentor against its
-CPU run, on the card. Marked ``cuda``;
+against their plain PyTorch versions, and the SAM segmentor and one SAM
+fine-tuning step against their CPU runs, on the card. Marked ``cuda``;
 without a CUDA device every test skips, decided inside the ``card``
 fixture so that every worker collects the same tests.
 
@@ -485,3 +485,45 @@ def test_radlong_overlay_frames_card_match_cpu(card):
     ref = radlong_overlay_frames(echo[:5], rad, lng, 5, device="cpu")
     assert got.device.type == "cuda" and got.shape == (5, 120, 320, 3)
     assert torch.equal(got.cpu(), ref)
+
+
+# --- SAM fine-tuning (plain PyTorch: no kernel of this repository) --------
+# one vanilla train step of vit_t at its full 1024 width, batch 1, strict
+# float32, card against CPU, at chip_smoke.py's tolerances: the loss
+# within TRAIN_LOSS_REL relative, each gradient within TRAIN_GRAD_REL of
+# its tensor's max-abs; a gradient that is zero in exact arithmetic
+# (attention k-projection biases, biases before a batch norm) is float32
+# noise on both sides and must stay under TRAIN_GRAD_NOISE x the largest
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_NOISE = 1e-4, 1e-3, 1e-6
+
+
+def test_train_step_card_matches_cpu(card):
+    from tee_optical_flow_torch.config import TrainConfig
+    from tee_optical_flow_torch.models.registry import build_sam_vit_t
+    from tee_optical_flow_torch.train import loop
+
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(1, 1024, 1024, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:256, 0:256]
+    labels = (((yy - 128) ** 2 + (xx - 100) ** 2 < 2500).astype(np.int32)
+              + 2 * (xx > 200))[None].astype(np.int32)
+    out = {}
+    for dev in ("cpu", card):
+        model = build_sam_vit_t(num_classes=3, seed=2, device=dev)
+        rt = loop.build_runtime(TrainConfig(num_cls=3, weight_decay=0.1),
+                                1, device=dev)
+        init, step = loop.make_train_step(model, rt)
+        metrics, grads = step.loss_and_grads(init(), images, labels)
+        out[str(dev)] = (float(metrics["total_loss"]),
+                         {k: v.cpu() for k, v in grads.items()})
+    (loss_c, ref), (loss_g, got) = out["cpu"], out[str(card)]
+    assert abs(loss_g - loss_c) <= TRAIN_LOSS_REL * abs(loss_c)
+    assert sorted(ref) == sorted(got)
+    gmax = max(float(v.abs().max()) for v in ref.values())
+    for name, r in ref.items():
+        scale = float(r.abs().max())
+        if scale < TRAIN_GRAD_NOISE * gmax:
+            assert float(got[name].abs().max()) < TRAIN_GRAD_NOISE * gmax
+        else:
+            assert float((got[name] - r).abs().max()) <= \
+                TRAIN_GRAD_REL * scale, name

@@ -72,3 +72,25 @@ def test_port_imports_without_h5py_pandas_matplotlib():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_training_imports_without_pil_tensorboardx():
+    """The trainer's modules import without PIL, tensorboardX and
+    matplotlib: each is imported where it is used (train/data where a
+    file is read; train/loop runs without a writer where tensorboardX is
+    absent)."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('PIL', 'tensorboardX', 'matplotlib'):\n"
+        "    sys.modules[name] = None\n"
+        "for name in ('tee_optical_flow_torch.train',\n"
+        "             'tee_optical_flow_torch.train.data',\n"
+        "             'tee_optical_flow_torch.train.visutils',\n"
+        "             'tee_optical_flow_torch.cli.train',\n"
+        "             'tee_optical_flow_torch.cli.val', 'chip_smoke'):\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

@@ -175,8 +175,13 @@ def test_segmentor_mode_needs_a_segmentor(tmp_path):
 def test_unported_options_are_refused():
     with pytest.raises(NotImplementedError, match="item 4"):
         sam_model_registry["vit_b"](num_classes=3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_sam_vit_t(adapter_stages=(1,), device="cpu")
+    # the PEFT adapters came with training: they build now
+    adapted = build_sam_vit_t(num_classes=3, image_size=64, device="cpu",
+                              adapter_stages=(1,), use_decoder_adapter=True)
+    keys = adapted.state_dict()
+    assert "image_encoder.layers.1.blocks.0.Space_Adapter.D_fc1.weight" in keys
+    assert "mask_decoder.transformer.layers.1.MLP_Adapter.D_fc2.bias" in keys
+    assert not any("Adapter" in k and ".layers.2." in k for k in keys)
     model = build_sam_vit_t(num_classes=3, image_size=64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 4"):
         make_clip_segmentor(model, weights_int8=True)
