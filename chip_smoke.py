@@ -53,15 +53,27 @@ arguments the TV-L1 and the DeepFlow path handed them):
     overfit of one batch; 3 steps each of the adapter and LoRA policies;
     one step card against CPU in strict float32 (loss, every gradient,
     the eval DSC); and cli.train -> checkpoint_best.pth -> load_segmentor
-    (labels equal to the trained model's) -> cli.process (25 K1 calls).
+    (labels equal to the trained model's) -> cli.process (25 K1 calls);
+  * the ViT-Det SAM (phase_vitdet): vit_b at 1024 (seeded random
+    weights) card against CPU in strict float32; cli.process over one
+    33x480x640 DICOM with a vit_b checkpoint directory (args.json says
+    vit_b) under config 5's PipelineConfig, in bfloat16 and in int8
+    weights (25 K1 calls each, masks against the CPU's clean_mask, int8
+    logits against bfloat16's), with the segmentor's time per frame,
+    FLOPs, peak memory and resident weight bytes; vit_l and vit_h at full
+    width and depth on one micro-batch in both; vit_b fine-tuning
+    (vanilla, adapters on blocks, decoder-only LoRA; then cli.train --arch
+    vit_b -> load_segmentor -> cli.process, 25 K1 calls); and the
+    predictor, the automatic mask generator and torch.export on one
+    frame.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, K1's one device launch per
 call, the block loop's and K3's device launches per call). Imports
 nothing of JAX. ``k3_tuning()`` and ``k2_tuning()`` (run on their own)
 time K3 and the block loop under builds with other tiles and steps per
-launch. Exits non-zero, with no result line, when there is no CUDA
-device or a phase fails.
+launch; ``vitdet_check()`` runs phase_vitdet alone. Exits non-zero,
+with no result line, when there is no CUDA device or a phase fails.
 
 Output: progress lines, each after the set-up headed by the card's name
 and power limit (nvidia-smi); then, before the last line, the card's name
@@ -193,6 +205,27 @@ TRAIN_OVERFIT_STEPS, TRAIN_OVERFIT_RATIO = 30, 0.7
 TRAIN_PEFT_STEPS = 3
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_NOISE = 1e-4, 1e-3, 1e-6
 TRAIN_CLI_FRAMES, TRAIN_CLI_EPOCHS = (8, 4), 2
+
+# the ViT-Det SAM (phase_vitdet): vit_b, vit_l and vit_h at 1024 with
+# SAM_CLASSES classes and VITDET_SEED's random weights. vit_b in float32,
+# TF32 off, card against CPU on one frame: logits within VITDET_F32_REL of
+# their max-abs; bfloat16 labels against float32 on the card at least
+# SAM_BF16_AGREE equal. The int8 segmentor's logits against the bfloat16
+# one's on a micro-batch: within VITDET_INT8_REL of their max-abs (the JAX
+# package's bound, tests/test_models.py). vit_b fine-tuning as phase_train
+# does vit_t (batch TRAIN_BATCH, VITDET_TRAIN_STEPS timed steps after
+# TRAIN_WARM; adapters on the CLI's default blocks VITDET_ADAPTER_BLOCKS);
+# the mask generator on a VITDET_AMG_POINTS x VITDET_AMG_POINTS grid. The
+# bfloat16 cli.process run's masks are held to the CPU's clean_mask at the
+# frames of SAM_WINDOWS, the int8 and the trained runs' at VITDET_WINDOWS
+# (each window costs ~15 s of CPU labelling)
+VITDET_SEED = 0
+VITDET_WINDOWS = (16,)
+VITDET_F32_REL = 1e-3
+VITDET_INT8_REL = 0.15
+VITDET_TRAIN_STEPS = 5
+VITDET_ADAPTER_BLOCKS = (0, 1, 10, 11)
+VITDET_AMG_POINTS = 4
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -1339,6 +1372,30 @@ def sam_segmentor(captured):
         micro_batch=SAM_MICRO_BATCH), captured)
 
 
+def masks_match_cpu(lab, masks, tag, windows=SAM_WINDOWS):
+    """The masks of a segmentor path against the port's clean_mask on the
+    CPU over the card's labels ``lab`` (all bucketed frames, on the host),
+    bit-equal at the frames ``windows``, each from the window of labels
+    its masks depend on (frames k-1 to k+2; ~15 s a window on the CPU)."""
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow.segment import clean_mask
+
+    cfg = default_optical_flow_config()
+    shares = np.bincount(lab.numpy().ravel(), minlength=SAM_CLASSES)
+    log(f"{tag} labels {tuple(lab.shape)} (bucketed clip): class shares "
+        f"{np.round(shares / shares.sum(), 4).tolist()}; mask coverage "
+        + ", ".join(f"{k} {float(v[..., 0].mean()):.4f}"
+                    for k, v in masks.items()))
+    t0 = time.perf_counter()
+    for k in windows:
+        lo = max(k - 1, 0)
+        ref = clean_mask(lab[lo:k + 3], "RVIO_2class", config=cfg)
+        for name, mask in masks.items():
+            assert np.array_equal(mask[k], ref[name][k - lo]), (name, k)
+    log(f"{tag} masks at frames {windows} bit-equal to clean_mask on "
+        f"the CPU over the card's labels ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_sam_masks(labels, masks, dcm, seg):
     """The SAM path's masks against the port's clean_mask run on the CPU
     over the card's own labels (the last run's, all bucketed frames):
@@ -1357,19 +1414,7 @@ def phase_sam_masks(labels, masks, dcm, seg):
 
     cfg = default_optical_flow_config()
     lab = labels.cpu()
-    shares = np.bincount(lab.numpy().ravel(), minlength=SAM_CLASSES)
-    log(f"SAM labels {tuple(lab.shape)} (bucketed clip): class shares "
-        f"{np.round(shares / shares.sum(), 4).tolist()}; mask coverage "
-        + ", ".join(f"{k} {float(v[..., 0].mean()):.4f}"
-                    for k, v in masks.items()))
-    t0 = time.perf_counter()
-    for k in SAM_WINDOWS:
-        lo = max(k - 1, 0)
-        ref = clean_mask(lab[lo:k + 3], "RVIO_2class", config=cfg)
-        for name, mask in masks.items():
-            assert np.array_equal(mask[k], ref[name][k - lo]), (name, k)
-    log(f"SAM masks at frames {SAM_WINDOWS} bit-equal to clean_mask on the "
-        f"CPU over the card's labels ({time.perf_counter() - t0:.1f} s)")
+    masks_match_cpu(lab, masks, "SAM")
 
     _, arr = read_dicom_clip(dcm)
     gray = np.concatenate([arr, np.repeat(arr[-1:], lab.shape[0]
@@ -2508,6 +2553,452 @@ def phase_train(clip, workdir, has_h5py):
                 serve_agree=agree, data_s=data_s)
 
 
+def _flops_per_frame(model, frames):
+    """FLOPs of ``model``'s forward on one normalised frame
+    (FlopCounterMode, from the shapes of its matrix products and
+    convolutions; grad on, as the counter's module hooks need)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tee_optical_flow_torch.models import preprocess_frames
+
+    with FlopCounterMode(display=False) as counter:
+        model(preprocess_frames(frames[:1], model.image_size))
+    return counter.get_total_flops()
+
+
+def _served_timing(tag, seg, clip4, hw, flops, peak_key="max_memory_gb"):
+    """ms per frame of ``seg`` on a micro-batch (CUDA events), its share of
+    the bfloat16 dense peak, the peak memory of the timed run and the
+    weight bytes it keeps on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: seg.labels_device(clip4, hw), 3) / clip4.shape[0]
+    out = dict(ms_per_frame=ms, tflop_per_s=flops / (ms * 1e-3) / 1e12,
+               share_of_bf16_peak=flops / (ms * 1e-3) / BF16_DENSE_OPS_PER_S,
+               resident_weight_bytes=seg.resident_weight_bytes,
+               **{peak_key: torch.cuda.max_memory_allocated() / 1e9})
+    log(f"{tag}: {ms:.3f} ms per frame at micro-batch {clip4.shape[0]}, "
+        f"{flops / 1e12:.4f} TFLOP per frame -> {out['tflop_per_s']:.2f} "
+        f"TFLOP/s = {100 * out['share_of_bf16_peak']:.2f}% of the "
+        f"{BF16_DENSE_OPS_PER_S / 1e12:.0f} TFLOP/s bfloat16 peak; max "
+        f"memory allocated {out[peak_key]:.2f} GB; resident weights "
+        f"{seg.resident_weight_bytes / 1e6:.1f} MB")
+    return out
+
+
+def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
+                   wf_dir, tag, windows=SAM_WINDOWS):
+    """cli.process.main over ``dcm_dir`` (one DICOM) with checkpoint dir
+    ``ckpt`` under a PipelineConfig of BASELINE config 5 (RVIO_2class,
+    TV-L1, saliency, WASE, waveforms) at ``model_dtype``: rc, 25 K1 calls,
+    the schema and the masks against clean_mask on the CPU over the card's
+    labels at the frames ``windows``. Returns (the served segmentor, what
+    it printed)."""
+    import torch
+
+    from tee_optical_flow_torch.cli import process as cli
+    from tee_optical_flow_torch.config import DeviceConfig, PipelineConfig
+    from tee_optical_flow_torch.flow import pipeline as pl
+    from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+
+    n, h, w = clip.shape
+    cfg = PipelineConfig(mode="RVIO_2class", of_algo="tvl1",
+                         no_saliency=False, wase=True,
+                         include_waveforms=True,
+                         device=DeviceConfig(model_dtype=model_dtype))
+    cfg_path = os.path.join(workdir, f"pipeline_{model_dtype}.json")
+    cfg.to_json(cfg_path)
+    out = os.path.join(workdir, f"out_{model_dtype}")
+    argv = ["--dcm_folder", dcm_dir, "--save_folder", out,
+            "--checkpoint_dir", ckpt, "--waveform_folder", wf_dir,
+            "--config", cfg_path]
+    saved, labels, segs, clip_s = {}, [], [], []
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        saved[save_path] = optical_flow_layout(
+            flow_arr, echo_gray, mask_dict, metadata, waveforms, **kw)
+
+    inner_video, inner_load = pl.process_video, cli.load_segmentor
+
+    def timed_video(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner_video(*args, **kw)
+        torch.cuda.synchronize()
+        clip_s.append(time.perf_counter() - t0)
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        segs.append(record_labels(inner_load(*args, **kw), labels))
+        torch.cuda.synchronize()
+        segs.append(time.perf_counter() - t0)
+        return segs[0]
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with substituted(pl, "process_video", timed_video), \
+            substituted(cli, "load_segmentor", timed_load):
+        rc = cli.main(argv, _save_fn=None if has_h5py else capture)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seg, load_s = segs
+    log(f"{tag}: cli.process {' '.join(argv)}: rc {rc}, clip "
+        f"{clip_s[0]:.3f} s (load_segmentor {load_s:.3f} s), max memory "
+        f"allocated {peak:.2f} GB; launches {counts}")
+    assert rc == 0, rc
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), \
+        counts
+    if has_h5py:
+        (path,) = [os.path.join(r, f) for r, _, fs in os.walk(out)
+                   for f in fs if f.endswith(".hdf5")]
+        saved = {path: layout_of_file(path)}
+    (layout,) = saved.values()
+    view = saved_of_layout(layout)
+    check_schema(view, n, h, w, "RVIO_2class")
+    masks_match_cpu(labels[0].cpu(), view["masks"], tag, windows)
+    return seg, dict(clip_s=clip_s[0], load_segmentor_s=load_s,
+                     max_memory_gb=peak,
+                     launches=counts["tvl1_outer_loop"],
+                     labels=labels[0])
+
+
+def phase_vitdet(clip, workdir, has_h5py):
+    """The ViT-Det SAM on the card (see VITDET_*): vit_b card against CPU;
+    vit_b served through cli.process in bfloat16 and int8 (25 K1 calls a
+    clip, masks against the CPU, int8 logits against bfloat16); vit_l and
+    vit_h at full width and depth on one micro-batch in bfloat16 and int8;
+    vit_b fine-tuning (vanilla, adapter blocks, decoder-only LoRA, then
+    cli.train --arch vit_b -> load_segmentor -> cli.process); and the
+    predictor, the mask generator and torch.export on one frame."""
+    import copy
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tee_optical_flow_torch.cli import process as cli_process
+    from tee_optical_flow_torch.cli import train as cli_train
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.models import (
+        make_clip_segmentor, preprocess_frames, sam_model_registry,
+    )
+    from tee_optical_flow_torch.models.amg import SamAutomaticMaskGenerator
+    from tee_optical_flow_torch.models.export import (
+        load_exported, save_exported,
+    )
+    from tee_optical_flow_torch.models.lora import init_lora
+    from tee_optical_flow_torch.models.predictor import SamPredictor
+    from tee_optical_flow_torch.train import checkpoint as ckpt_mod
+    from tee_optical_flow_torch.train import loop
+    from tee_optical_flow_torch.train.data import (
+        PublicDataset, batch_iterator,
+    )
+
+    assert not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    n, h, w = clip.shape
+    hw = (h, w)
+    out = {}
+    kw = dict(num_classes=SAM_CLASSES, seed=VITDET_SEED)
+    frames = torch.from_numpy(np.ascontiguousarray(clip[:SAM_MICRO_BATCH]))
+    clip4 = frames.cuda()
+
+    # 1. vit_b, card against CPU, one frame in strict float32
+    log("--- ViT-Det: vit_b (768 wide, 12 blocks, 12 heads, window 14, "
+        "global attention at blocks 2, 5, 8, 11) at 1024")
+    t0 = time.perf_counter()
+    cpu = sam_model_registry["vit_b"](device="cpu", **kw)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in cpu.parameters())
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = cpu(preprocess_frames(frames[:1], cpu.image_size))[0]
+        cpu_s = time.perf_counter() - t0
+        f32 = copy.deepcopy(cpu).cuda()
+        got = f32(preprocess_frames(clip4[:1], f32.image_size))[0].cpu()
+    del cpu
+    side = f32.image_size // 4
+    assert got.shape == (1, SAM_CLASSES, side, side) and bool(
+        torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    bf16 = sam_model_registry["vit_b"](dtype=torch.bfloat16, **kw)
+    with torch.no_grad():
+        x4 = preprocess_frames(clip4, bf16.image_size)
+        f32_4 = f32(x4)[0]
+        low = bf16(x4)[0]
+    agree16 = float((low.argmax(1) == f32_4.argmax(1)).float().mean())
+    log(f"vit_b: {n_params} parameters, built on the CPU from a seeded "
+        f"generator in {build_s:.1f} s; float32, TF32 off, 1 frame: card "
+        f"vs CPU logits max-abs {err:.3g} = {rel:.3g} of their max-abs "
+        f"{float(ref.abs().max()):.3f} (bound {VITDET_F32_REL}), CPU "
+        f"forward {cpu_s:.1f} s; bfloat16 vs float32 labels on "
+        f"{SAM_MICRO_BATCH} frames agree {agree16:.5f} (bound "
+        f"{SAM_BF16_AGREE})")
+    assert rel < VITDET_F32_REL, rel
+    assert agree16 >= SAM_BF16_AGREE, agree16
+    out["vit_b_card_vs_cpu"] = dict(f32_rel=rel, f32_max_abs=err,
+                                    bf16_agree=agree16, params=n_params)
+    del f32, f32_4
+
+    # 2. vit_b served through cli.process in bfloat16 and in int8
+    root = os.path.join(workdir, "vitdet")
+    dcm_dir, wf_dir, ckpt = (os.path.join(root, d)
+                             for d in ("dcm", "wf", "run"))
+    for d in (dcm_dir, wf_dir, ckpt):
+        os.makedirs(d)
+    write_dicom_clip(os.path.join(dcm_dir, "vitb.dcm"),
+                     np.repeat(clip[..., None], 3, axis=-1), frame_rate=FPS,
+                     pixel_spacing=SPACING_CM)
+    cohort_inputs(h, w, wf_dir, "vitb")
+    with open(os.path.join(ckpt, "args.json"), "w") as f:
+        json.dump({"num_cls": SAM_CLASSES, "arch": "vit_b"}, f)
+    torch.save({k: v.cpu() for k, v in bf16.state_dict().items()},
+               os.path.join(ckpt, "checkpoint_best.pth"))
+    flops = _flops_per_frame(bf16, clip4)
+    del bf16
+    served, logits = {}, {}
+    for dtype in ("bfloat16", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        seg, run = vitdet_cli_run(
+            clip, root, has_h5py, dtype, ckpt, dcm_dir, wf_dir,
+            f"vit_b {dtype}", SAM_WINDOWS if dtype == "bfloat16"
+            else VITDET_WINDOWS)
+        run.update(_served_timing(f"vit_b segmentor {dtype}", seg, clip4,
+                                  hw, flops, "segmentor_max_memory_gb"))
+        if dtype == "bfloat16":
+            log(f"vit_b segmentor, one micro-batch of {SAM_MICRO_BATCH} "
+                f"frames under torch.profiler:")
+            profile_clip(lambda: seg.labels_device(clip4, hw))
+        with torch.no_grad():
+            logits[dtype] = seg.forward(x4)[0].float()
+        served[dtype] = run
+        del seg
+    lab16, lab8 = served["bfloat16"].pop("labels"), served["int8"].pop(
+        "labels")
+    err8 = float((logits["int8"] - logits["bfloat16"]).abs().max())
+    rel8 = err8 / float(logits["bfloat16"].abs().max())
+    agree8 = float((lab8 == lab16).float().mean())
+    log(f"vit_b int8 vs bfloat16 on {SAM_MICRO_BATCH} frames: logits "
+        f"max-abs {err8:.4f} = {rel8:.4f} of their max-abs (bound "
+        f"{VITDET_INT8_REL}); the clip's labels agree {agree8:.5f}")
+    assert rel8 <= VITDET_INT8_REL, rel8
+    out["vit_b_served"] = dict(served, gflop_per_frame=flops / 1e9,
+                               int8_rel=rel8, int8_labels_agree=agree8)
+    launches = [served[d]["launches"] for d in served]
+
+    # 3. vit_l and vit_h at full width and depth on one micro-batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    for arch in ("vit_l", "vit_h"):
+        t0 = time.perf_counter()
+        model = sam_model_registry[arch](dtype=torch.bfloat16, **kw)
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        arch_flops = _flops_per_frame(model, clip4)
+        seg = make_clip_segmentor(model, micro_batch=SAM_MICRO_BATCH)
+        res = {"bfloat16": _served_timing(f"{arch} bfloat16", seg, clip4,
+                                          hw, arch_flops)}
+        q8 = make_clip_segmentor(model, micro_batch=SAM_MICRO_BATCH,
+                                 weights_int8=True)
+        del seg, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        at_rest = (torch.cuda.memory_allocated() - base) / 1e9
+        res["int8"] = _served_timing(f"{arch} int8", q8, clip4, hw,
+                                     arch_flops)
+        res["int8"]["allocated_at_rest_gb"] = at_rest
+        out[arch] = dict(res, params=n_params, build_s=build_s,
+                         gflop_per_frame=arch_flops / 1e9)
+        log(f"{arch}: {n_params} parameters (built in {build_s:.1f} s); "
+            f"the int8 segmentor alone holds {at_rest:.3f} GB allocated "
+            f"on the card at rest")
+        del q8
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 4. vit_b fine-tuning at 1024, float32
+    gc.collect()
+    torch.cuda.empty_cache()
+    troot = os.path.join(root, "train")
+    lst = train_inputs(clip, troot, range(n), "all")
+    ds = PublicDataset(os.path.join(troot, "img"),
+                       os.path.join(troot, "mask"), lst, phase="train",
+                       image_size=TRAIN_SIZE, out_size=TRAIN_OUT,
+                       seed=TRAIN_SEED)
+    batches = list(batch_iterator(ds, TRAIN_BATCH, seed=TRAIN_SEED))
+    images, labels = batches[0]
+    train = {}
+    for policy, build, extra in (
+            ("vanilla", {}, {}),
+            ("adapter", dict(adapter_blocks=VITDET_ADAPTER_BLOCKS,
+                             use_decoder_adapter=True), {}),
+            ("lora_decoder", {}, {})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = sam_model_registry["vit_b"](
+            num_classes=SAM_CLASSES, image_size=TRAIN_SIZE, seed=TRAIN_SEED,
+            **build)
+        ftype = "lora" if policy == "lora_decoder" else policy
+        init, step = loop.make_train_step(
+            model, _train_runtime(TRAIN_WARM + VITDET_TRAIN_STEPS),
+            finetune_type=ftype)
+        state = init(init_lora(model, rank=4, seed=TRAIN_SEED, encoder=False)
+                     if ftype == "lora" else None)
+        n_p = sum(t.numel() for _, t in state.trainable)
+        with FlopCounterMode(display=False, custom_mapping={
+                torch.ops.aten.convolution_backward: conv_backward_flop}
+                ) as counter:
+            step.loss_and_grads(state, images, labels)
+        step_flops = counter.get_total_flops()
+        del counter
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_step_ms(step, state, batches, TRAIN_WARM,
+                             VITDET_TRAIN_STEPS)
+        loss = float(step(state, images, labels)["total_loss"])
+        rate = step_flops / (ms * 1e-3)
+        train[policy] = dict(
+            ms_per_step=ms, images_per_s=TRAIN_BATCH / (ms * 1e-3),
+            gflop_per_step=step_flops / 1e9, tflop_per_s=rate / 1e12,
+            share_of_f32_peak=rate / FP32_OPS_PER_S, trainable=n_p,
+            max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            loss=loss)
+        log(f"vit_b train {policy}, batch {TRAIN_BATCH} at {TRAIN_SIZE} "
+            f"(float32): {n_p} trainable parameters, median {ms:.3f} ms "
+            f"per step over {VITDET_TRAIN_STEPS} after {TRAIN_WARM}, "
+            f"{train[policy]['images_per_s']:.2f} images/s, "
+            f"{step_flops / 1e12:.3f} TFLOP per step -> {rate / 1e12:.2f} "
+            f"TFLOP/s = {100 * rate / FP32_OPS_PER_S:.2f}% of the float32 "
+            f"peak; max memory allocated "
+            f"{train[policy]['max_memory_gb']:.2f} GB; loss {loss:.4f}")
+        assert np.isfinite(loss), loss
+        del model, state, step, init
+
+    # cli.train --arch vit_b -> load_segmentor -> cli.process
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_tr, n_val = TRAIN_CLI_FRAMES
+    tr_list = train_inputs(clip, troot, range(n_tr), "train")
+    val_list = train_inputs(clip, troot, range(n_tr, n_tr + n_val), "val")
+    run = os.path.join(troot, "run")
+    argv = ["--arch", "vit_b", "--dir_checkpoint", run, "--img_folder",
+            os.path.join(troot, "img"), "--mask_folder",
+            os.path.join(troot, "mask"), "--train_img_list", tr_list,
+            "--val_img_list", val_list, "--num_cls", str(SAM_CLASSES),
+            "--epochs", str(TRAIN_CLI_EPOCHS), "-b", str(TRAIN_BATCH),
+            "--lr", str(TRAIN_LR), "--warmup_period", "2", "--seed",
+            str(TRAIN_SEED), "--image_size", str(TRAIN_SIZE), "--out_size",
+            str(TRAIN_OUT), "--device", "cuda"]
+    saved = []
+    inner_save = ckpt_mod.save_checkpoint
+
+    def keep_copy(dir_checkpoint, model, *args, **kwargs):
+        saved[:] = [copy.deepcopy(model)]
+        return inner_save(dir_checkpoint, model, *args, **kwargs)
+
+    t0 = time.perf_counter()
+    with substituted(ckpt_mod, "save_checkpoint", keep_copy):
+        rc = cli_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    assert rc == 0 and saved, (rc, len(saved))
+    with open(os.path.join(run, "args.json")) as f:
+        assert json.load(f)["arch"] == "vit_b"
+    served_f32 = cli_process.load_segmentor(run, model_dtype="float32")
+    clip_dev = torch.from_numpy(np.ascontiguousarray(clip)).cuda()
+    agree = float((served_f32.labels_device(clip_dev, hw)
+                   == make_clip_segmentor(saved[0]).labels_device(
+                       clip_dev, hw)).float().mean())
+    del served_f32, saved[:]
+    log(f"cli.train {' '.join(argv)}: rc {rc} in {train_s:.1f} s; "
+        f"load_segmentor({run}) against the trained model: {agree:.6f} of "
+        f"the clip's labels equal")
+    assert agree == 1.0, agree
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg, trained_run = vitdet_cli_run(clip, troot, has_h5py, "bfloat16",
+                                      run, dcm_dir, wf_dir, "vit_b trained",
+                                      VITDET_WINDOWS)
+    trained_run.pop("labels")
+    launches.append(trained_run["launches"])
+    del seg
+    out["vit_b_train"] = dict(train, cli_train_s=train_s, serve_agree=agree,
+                              served=trained_run)
+
+    # 5. the predictor, the mask generator and export, one frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = sam_model_registry["vit_b"](dtype=torch.bfloat16, **kw)
+    frame = np.repeat(clip[0][..., None], 3, axis=-1)
+    pred = SamPredictor(model)
+    set_ms = cuda_ms(lambda: pred.set_image(frame), 3)
+    point = dict(point_coords=np.array([[w * 0.5, h * 0.6]]),
+                 point_labels=np.array([1]))
+    masks, ious, _ = pred.predict(**point)
+    predict_ms = cuda_ms(lambda: pred.predict(**point), 5)
+    assert masks.shape == (SAM_CLASSES, h, w) and np.isfinite(ious).all()
+    t0 = time.perf_counter()
+    records = SamAutomaticMaskGenerator(
+        pred, points_per_side=VITDET_AMG_POINTS, pred_iou_thresh=-1e9,
+        stability_score_thresh=-1.0).generate(frame)
+    amg_s = time.perf_counter() - t0
+    assert records and all(r["segmentation"].shape == (h, w)
+                           for r in records)
+    t0 = time.perf_counter()
+    path = save_exported(model, os.path.join(root, "vit_b.pt2"), batch=1)
+    export_s = time.perf_counter() - t0
+    exported = load_exported(path)
+    with torch.no_grad():
+        x1 = x4[:1]
+        lab_e, iou_e = exported(x1)
+        logits_1, iou_1 = model(x1)
+    eager = logits_1.argmax(1).to(torch.uint8)
+    export_agree = float((lab_e == eager).float().mean())
+    log(f"vit_b predictor on one {h}x{w} frame (bfloat16): set_image "
+        f"{set_ms:.3f} ms, predict {predict_ms:.3f} ms (CUDA events, host "
+        f"work included); SamAutomaticMaskGenerator({VITDET_AMG_POINTS}x"
+        f"{VITDET_AMG_POINTS} points, filters open) {len(records)} records "
+        f"in {amg_s:.2f} s; torch.export of the forward at batch 1 in "
+        f"{export_s:.1f} s ({os.path.getsize(path) / 1e6:.1f} MB): loaded "
+        f"program's labels equal eager on {export_agree:.6f}, iou max-abs "
+        f"{float((iou_e - iou_1).abs().max()):.3g}")
+    assert export_agree == 1.0, export_agree
+    out["predictor"] = dict(set_image_ms=set_ms, predict_ms=predict_ms,
+                            amg_records=len(records), amg_s=amg_s,
+                            export_s=export_s, export_agree=export_agree)
+    del model, pred, exported
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def vitdet_check() -> int:
+    """phase_vitdet alone on the 480x640 clip, after the kernels' build:
+    a shorter call than the whole smoke, for work on this phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    _, has_h5py = phase_setup()
+    clip, _ = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        log("ViT-Det: " + json.dumps(phase_vitdet(clip, workdir, has_h5py)))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2565,6 +3056,8 @@ def main() -> int:
     sam = phase_sam(clip)
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
         train = phase_train(clip, workdir, has_h5py)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        vitdet = phase_vitdet(clip, workdir, has_h5py)
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
     k2_counts = results["TVL1 600x800"][0]
@@ -2594,7 +3087,8 @@ def main() -> int:
         true_flow=records["tvl1_outer_loop"],
         sam_path_launches=results["SAM"][0]["tvl1_outer_loop"],
         config4_path_launches=cohort["launches"],
-        config5_path_launches=config5["launches"])
+        config5_path_launches=config5["launches"],
+        vitb_path_launches=vitdet.pop("launches"))
     k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
     for name, source, replaces, launches, path in (
@@ -2628,7 +3122,8 @@ def main() -> int:
                                    "clip_device_ms", "clip_device_launches",
                                    "true_flow", "sam_path_launches",
                                    "config4_path_launches",
-                                   "config5_path_launches")
+                                   "config5_path_launches",
+                                   "vitb_path_launches")
                if k in rec},
         })
     for name, (_, clip_s, solver_s, _, _) in results.items():
@@ -2644,6 +3139,7 @@ def main() -> int:
     log("config 5: " + json.dumps(config5))
     log("analysis entry points: " + json.dumps(analysis))
     log("training: " + json.dumps(train))
+    log("ViT-Det: " + json.dumps(vitdet))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

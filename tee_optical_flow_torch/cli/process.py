@@ -105,11 +105,15 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
     segmentor runs at the registry's image size (1024), as the JAX
     package's does, whatever size the run trained at.
 
+    ``arch`` (vit_t, or the ViT-Det vit_b/l/h) comes from args.json when
+    it says. ``model_dtype="int8"`` builds the model in bfloat16 and
+    serves it with int8 weights (``make_clip_segmentor(weights_int8=
+    True)``, models/quantize.py).
+
     Refused with NotImplementedError: an orbax ``checkpoint_best/``
     snapshot of the JAX trainer with no ``.pth`` (orbax needs JAX; the
-    port's trainer writes torch files), ``model_dtype="int8"`` (ROADMAP.md,
-    queue 1, item 4), ``data_axis > 1`` (item 6) and the vit_b/l/h
-    encoders (item 4, refused by the registry)."""
+    port's trainer writes torch files) and ``data_axis > 1`` (ROADMAP.md,
+    queue 1, item 6)."""
     import torch
 
     from ..exceptions import ConfigurationError
@@ -131,11 +135,6 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
         raise ConfigurationError(
             f"model_dtype must be one of float32/bfloat16/int8, "
             f"got {model_dtype!r}")
-    if model_dtype == "int8":
-        raise NotImplementedError(
-            "model_dtype='int8' (weight-only int8 kernels, the JAX "
-            "package's models/quantize.py) is not ported yet: ROADMAP.md, "
-            "queue 1, item 4")
     if data_axis and data_axis > 1:
         raise NotImplementedError(
             f"data_axis={data_axis} (the segmentor's frame-axis data "
@@ -160,6 +159,8 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
                                      checkpoint=torch_ckpt, dtype=dtype,
                                      device=device,
                                      **model_kwargs_of_run(run_args))
+    if model_dtype == "int8":
+        return make_clip_segmentor(model, micro_batch=4, weights_int8=True)
     return make_clip_segmentor(model, micro_batch=4)
 
 

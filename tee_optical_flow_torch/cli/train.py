@@ -9,7 +9,9 @@ __main__ (:194-214) and the cfg.py flag schema (:3-77). Same flags as the
 JAX CLI, plus ``--device`` (``cuda`` by default, ``cpu``). Writes
 ``args.json`` and the best-DSC ``checkpoint_best.pth`` into
 ``--dir_checkpoint``, which ``cli.process --checkpoint_dir`` then serves.
-``--data_axis`` or ``--model_axis`` above 1 (training on several cards)
+``--arch vit_b|vit_l|vit_h`` fine-tunes a ViT-Det SAM (adapters go on
+the blocks ``--encoder_adapter_depths`` names; on vit_t on those
+stages). ``--data_axis`` or ``--model_axis`` above 1 (training on several cards)
 raise NotImplementedError: ROADMAP.md, queue 1, item 6.
 """
 
@@ -128,8 +130,9 @@ def main(argv=None) -> int:
                 "--if_mask_decoder_adapter (otherwise no adapter modules "
                 "exist and nothing would train)")
         if args.if_encoder_adapter:
-            build_kwargs["adapter_stages"] = tuple(
-                args.encoder_adapter_depths)
+            key = ("adapter_stages" if args.arch == "vit_t"
+                   else "adapter_blocks")
+            build_kwargs[key] = tuple(args.encoder_adapter_depths)
         build_kwargs["use_decoder_adapter"] = args.if_mask_decoder_adapter
 
     model = sam_model_registry[args.arch](

@@ -287,8 +287,7 @@ class DeviceConfig(_JsonMixin):
     model_axis: int = 1
     # compute_dtype is the flow solvers' precision (float32 only:
     # validated); model_dtype the segmentor's (cli/process.load_segmentor;
-    # "int8", weight-only quantized, passes validation and is refused
-    # there until it is ported)
+    # "int8": bfloat16 compute on int8 weights, models/quantize.py)
     compute_dtype: str = "float32"
     model_dtype: str = "bfloat16"
     frame_bucket: int = 8

@@ -3,7 +3,8 @@
 ``sam_state_dict_from_flax`` carries a JAX package variables tree (numpy
 arrays) across to the port: the inverse of that package's
 ``convert_tinyvit``, ``convert_prompt_encoder`` and
-``convert_mask_decoder`` (its models/convert.py), giving a state dict
+``convert_mask_decoder`` (its models/convert.py), and of
+``convert_vitdet`` for the ViT-Det encoders, giving a state dict
 under the reference torch keys that ``Sam.load_state_dict(strict=True)``
 takes. Layouts:
 
@@ -15,7 +16,8 @@ takes. Layouts:
   params bn.{scale, bias} + batch_stats      -> BatchNorm weight, bias,
     bn.{mean, var}                              running_mean, running_var
   adapter {down, up} (space_adapter,         -> D_fc1, D_fc2 of
-    mlp_adapter)                                Space_Adapter, MLP_Adapter
+    mlp_adapter, depth_adapter)                 Space_Adapter, MLP_Adapter,
+                                                Depth_Adapter
 
 ``load_torch_checkpoint`` loads a reference ``.pth`` (the fine-tuned
 checkpoint_best.pth or the public mobile_sam.pt), whose keys the port's
@@ -86,18 +88,8 @@ def _depth(tree, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
-def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
-                             head_classes: int = 1000
-                             ) -> Dict[str, torch.Tensor]:
-    """A vit_t JAX ``Sam`` variables tree -> the port's state dict.
-
-    The reference TinyViT's classifier head (``image_encoder.norm_head``,
-    ``image_encoder.head``), which SAM never runs and the JAX package
-    does not hold, is filled with ones and zeros."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    enc, enc_s = params["image_encoder"], stats["image_encoder"]
-    out = _StateDict()
+def _tinyvit_from_flax(out: _StateDict, enc, enc_s,
+                       head_classes: int) -> None:
     p = "image_encoder."
     out.conv_bn(p + "patch_embed.seq.0", enc["patch_embed_conv1"],
                 enc_s["patch_embed_conv1"])
@@ -129,15 +121,66 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
             if "space_adapter" in b:
                 out.adapter(t + ".Space_Adapter", b["space_adapter"])
                 out.adapter(t + ".MLP_Adapter", b["mlp_adapter"])
-    out.conv(p + "neck.0", enc["neck_conv1"])
-    out.norm2d(p + "neck.1", enc["neck_ln1"])
-    out.conv(p + "neck.2", enc["neck_conv2"])
-    out.norm2d(p + "neck.3", enc["neck_ln2"])
+    _neck_from_flax(out, enc)
     width = _f32(enc["neck_conv1"]["kernel"]).shape[2]
     out.put(p + "norm_head.weight", np.ones(width))
     out.put(p + "norm_head.bias", np.zeros(width))
     out.put(p + "head.weight", np.zeros((head_classes, width)))
     out.put(p + "head.bias", np.zeros(head_classes))
+
+
+def _vitdet_from_flax(out: _StateDict, enc) -> None:
+    """The inverse of the JAX package's ``convert_vitdet``, with the
+    adapters (``space_adapter``, ``mlp_adapter``, ``depth_adapter`` ->
+    ``Space_Adapter``, ``MLP_Adapter``, ``Depth_Adapter``)."""
+    p = "image_encoder."
+    out.conv(p + "patch_embed.proj", enc["patch_embed"])
+    out.put(p + "pos_embed", enc["pos_embed"])
+    for i in range(_depth(enc, "block")):
+        b = enc[f"block{i}"]
+        t = f"{p}blocks.{i}"
+        out.norm(t + ".norm1", b["norm1"])
+        out.norm(t + ".norm2", b["norm2"])
+        out.dense(t + ".attn.qkv", b["attn"]["qkv"])
+        out.dense(t + ".attn.proj", b["attn"]["proj"])
+        if "rel_pos_h" in b["attn"]:
+            out.put(t + ".attn.rel_pos_h", b["attn"]["rel_pos_h"])
+            out.put(t + ".attn.rel_pos_w", b["attn"]["rel_pos_w"])
+        out.dense(t + ".mlp.lin1", b["mlp"]["lin1"])
+        out.dense(t + ".mlp.lin2", b["mlp"]["lin2"])
+        for flax_name, key in (("space_adapter", "Space_Adapter"),
+                               ("mlp_adapter", "MLP_Adapter"),
+                               ("depth_adapter", "Depth_Adapter")):
+            if flax_name in b:
+                out.adapter(f"{t}.{key}", b[flax_name])
+    _neck_from_flax(out, enc)
+
+
+def _neck_from_flax(out: _StateDict, enc) -> None:
+    p = "image_encoder."
+    out.conv(p + "neck.0", enc["neck_conv1"])
+    out.norm2d(p + "neck.1", enc["neck_ln1"])
+    out.conv(p + "neck.2", enc["neck_conv2"])
+    out.norm2d(p + "neck.3", enc["neck_ln2"])
+
+
+def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
+                             head_classes: int = 1000
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX ``Sam`` variables tree (vit_t, or vit_b/l/h: the encoder's
+    tree says which) -> the port's state dict.
+
+    The reference TinyViT's classifier head (``image_encoder.norm_head``,
+    ``image_encoder.head``), which SAM never runs and the JAX package
+    does not hold, is filled with ones and zeros."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    enc = params["image_encoder"]
+    out = _StateDict()
+    if "pos_embed" in enc:
+        _vitdet_from_flax(out, enc)
+    else:
+        _tinyvit_from_flax(out, enc, stats["image_encoder"], head_classes)
 
     pe = params["prompt_encoder"]
     p = "prompt_encoder."
@@ -193,8 +236,11 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
     return out.sd
 
 
-def load_torch_checkpoint(path: str, model: torch.nn.Module
-                          ) -> torch.nn.Module:
+ARCHS = ("vit_t", "vit_b", "vit_l", "vit_h")
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module,
+                          arch: str = "vit_t") -> torch.nn.Module:
     """Load a reference ``.pth`` into ``model`` with ``strict=True``: a
     state dict, a module, or a dict holding the state dict under
     ``"model"``. A LoRA run's checkpoint (train/checkpoint.py) also holds
@@ -204,7 +250,12 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module
     reference saves whole objects: load only checkpoints from a trusted
     source. The model's adapters that the checkpoint lacks (one of a
     model without them, such as mobile_sam.pt) keep their own weights;
-    every other key must match."""
+    every other key must match. ``arch`` is the model's (vit_t or
+    vit_b/l/h); any other raises CheckpointError, as the JAX package's
+    converter does."""
+    if arch not in ARCHS:
+        raise CheckpointError(
+            f"Converter for arch {arch!r} not implemented yet")
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()

@@ -56,14 +56,15 @@ def qkv_qv_columns(dim: int, num_heads: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def iter_attn_sites(model: nn.Module) -> List[Tuple[str, str]]:
     """(site, kind) of every LoRA-able projection in module order: kind
-    ``fused_qkv`` for a TinyViT attention's qkv, ``dense`` for the q and v
-    projections of the decoder's attentions."""
+    ``fused_qkv`` for the qkv of a TinyViT or a ViT-Det attention, ``dense``
+    for the q and v projections of the decoder's attentions."""
+    from .image_encoder import RelPosAttention
     from .tinyvit import Attention
     from .transformer import DownsampledAttention
 
     sites = []
     for name, m in model.named_modules():
-        if isinstance(m, Attention):
+        if isinstance(m, (Attention, RelPosAttention)):
             sites.append((f"{name}.qkv", "fused_qkv"))
         elif (isinstance(m, DownsampledAttention)
               and name.rsplit(".", 1)[-1] in _DECODER_ATTNS):
@@ -127,7 +128,10 @@ def merge_lora(params: Dict[str, torch.Tensor],
     dict). The base weight is detached, so gradients reach the factors
     only; the other parameters are the model's own. A fused qkv site's
     head count comes from ``heads_by_dim`` by its width (vit_t's by
-    default)."""
+    default), as in the JAX package: a ViT-Det encoder's qkv (width 768,
+    1024 or 1280) has none there, so encoder LoRA on vit_b/l/h raises
+    ValueError at the first merge, as the JAX package's does; decoder-only
+    LoRA trains."""
     heads_by_dim = heads_by_dim or VIT_T_HEADS_BY_DIM
     merged = {}
     for site, fac in lora.items():
@@ -151,6 +155,8 @@ def merge_lora(params: Dict[str, torch.Tensor],
 _FLAX_SITE = (
     (re.compile(r"^image_encoder/stage(\d+)_block(\d+)/attn/qkv$"),
      r"image_encoder.layers.\1.blocks.\2.attn.qkv"),
+    (re.compile(r"^image_encoder/block(\d+)/attn/qkv$"),
+     r"image_encoder.blocks.\1.attn.qkv"),
     (re.compile(r"^mask_decoder/transformer/layer(\d+)/(\w+)/(\w+)$"),
      r"mask_decoder.transformer.layers.\1.\2.\3"),
     (re.compile(r"^mask_decoder/transformer/final_attn_token_to_image/(\w+)$"),

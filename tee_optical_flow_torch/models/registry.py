@@ -5,8 +5,11 @@
 or a reference checkpoint's. ``num_classes`` is the decoder's
 num_multimask_outputs, as the reference wires it (build_sam.py:85-97).
 ``adapter_stages`` and ``use_decoder_adapter`` add the PEFT adapters
-(models/common.Adapter). The ViT-Det encoders (vit_b, vit_l, vit_h) are
-not ported yet and raise.
+(models/common.Adapter). ``build_sam_vit_{b,l,h}`` build the ViT-Det
+encoders (models/image_encoder.py) at the widths, depths, heads and
+global-attention blocks of the reference (build_sam.py:21-57), with
+``adapter_blocks`` in place of ``adapter_stages``. Random weights come
+from a seeded ``torch.Generator`` on the CPU, then move to ``device``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn as nn
 
 from ..core import resolve_device
 from .common import LayerNorm2d
+from .image_encoder import ImageEncoderViT
 from .sam import Sam
 from .tinyvit import TinyViT
 
@@ -82,24 +86,68 @@ def build_sam_vit_t(num_classes: int = 3, image_size: int = 1024,
     if checkpoint:
         from .convert import load_torch_checkpoint
 
-        load_torch_checkpoint(checkpoint, model)
+        load_torch_checkpoint(checkpoint, model, arch="vit_t")
     return model.to(dev).eval()
 
 
-def _vitdet(arch: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"SAM {arch} (the ViT-Det encoder, the JAX package's "
-            "models/image_encoder.py) is not ported yet: ROADMAP.md, queue "
-            "1, item 4")
+def _build_vitdet(arch: str, embed_dim: int, depth: int, num_heads: int,
+                  global_attn: Sequence[int], num_classes: int,
+                  image_size: int, checkpoint: Optional[str],
+                  dtype: torch.dtype, seed: int, device,
+                  adapter_blocks: Sequence[int],
+                  use_decoder_adapter: bool) -> Sam:
+    dev = resolve_device(device)
+    encoder = ImageEncoderViT(
+        img_size=image_size, embed_dim=embed_dim, depth=depth,
+        num_heads=num_heads, global_attn_indexes=tuple(global_attn),
+        adapter_blocks=tuple(adapter_blocks), dtype=dtype)
+    model = Sam(encoder, num_classes=num_classes, image_size=image_size,
+                use_decoder_adapter=use_decoder_adapter, dtype=dtype)
+    init_weights(model, seed)
+    if checkpoint:
+        from .convert import load_torch_checkpoint
 
-    build.__name__ = f"build_sam_{arch}"
-    return build
+        load_torch_checkpoint(checkpoint, model, arch=arch)
+    return model.to(dev).eval()
 
 
-build_sam_vit_b = _vitdet("vit_b")
-build_sam_vit_l = _vitdet("vit_l")
-build_sam_vit_h = _vitdet("vit_h")
+def build_sam_vit_b(num_classes: int = 3, image_size: int = 1024,
+                    checkpoint: Optional[str] = None,
+                    dtype: torch.dtype = torch.float32, seed: int = 0,
+                    device=None, adapter_blocks: Sequence[int] = (),
+                    use_decoder_adapter: bool = False) -> Sam:
+    """vit_b SAM (ViT-Det 768 wide, 12 blocks, 12 heads, global attention
+    at blocks 2, 5, 8, 11; 91 M parameters), as ``build_sam_vit_t``
+    builds vit_t. ``adapter_blocks`` are the encoder blocks that get
+    adapters."""
+    return _build_vitdet("vit_b", 768, 12, 12, (2, 5, 8, 11), num_classes,
+                         image_size, checkpoint, dtype, seed, device,
+                         adapter_blocks, use_decoder_adapter)
+
+
+def build_sam_vit_l(num_classes: int = 3, image_size: int = 1024,
+                    checkpoint: Optional[str] = None,
+                    dtype: torch.dtype = torch.float32, seed: int = 0,
+                    device=None, adapter_blocks: Sequence[int] = (),
+                    use_decoder_adapter: bool = False) -> Sam:
+    """vit_l SAM (1024 wide, 24 blocks, 16 heads, global attention at 5,
+    11, 17, 23)."""
+    return _build_vitdet("vit_l", 1024, 24, 16, (5, 11, 17, 23),
+                         num_classes, image_size, checkpoint, dtype, seed,
+                         device, adapter_blocks, use_decoder_adapter)
+
+
+def build_sam_vit_h(num_classes: int = 3, image_size: int = 1024,
+                    checkpoint: Optional[str] = None,
+                    dtype: torch.dtype = torch.float32, seed: int = 0,
+                    device=None, adapter_blocks: Sequence[int] = (),
+                    use_decoder_adapter: bool = False) -> Sam:
+    """vit_h SAM (1280 wide, 32 blocks, 16 heads, global attention at 7,
+    15, 23, 31; 0.64 G parameters): the registry's ``default``."""
+    return _build_vitdet("vit_h", 1280, 32, 16, (7, 15, 23, 31),
+                         num_classes, image_size, checkpoint, dtype, seed,
+                         device, adapter_blocks, use_decoder_adapter)
+
 
 sam_model_registry = {
     "default": build_sam_vit_h,

@@ -21,6 +21,7 @@ from ..ops.imaging import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.warp import resize_bilinear
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
+from .quantize import dequantize_state, int8_serving_copy, tensor_bytes
 
 
 class Sam(nn.Module):
@@ -124,23 +125,43 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
     clip that already lies on the device, (N, H, W) single-channel or
     (N, H, W, 3), returning the labels on the device.
 
-    ``weights_int8`` (int8 weight-only kernels) and ``mesh`` (frame-axis
-    data parallelism over several cards) are not ported yet and raise."""
-    if weights_int8:
-        raise NotImplementedError(
-            "make_clip_segmentor(weights_int8=True) (the JAX package's "
-            "models/quantize.py) is not ported yet: ROADMAP.md, queue 1, "
-            "item 4")
+    ``weights_int8`` stores the weight of every dense layer and
+    convolution as symmetric per-output-channel int8 (models/quantize.py)
+    and dequantizes it into the model's compute type inside each
+    micro-batch's forward: the int8 values and their scales are what stays
+    on the device, the compute-type copy lives for one forward. The
+    segmentor then runs a copy of ``model`` without those weights
+    (``model`` itself is not changed: drop it to free its weights). The
+    callable's ``resident_weight_bytes`` is the bytes of the weights it
+    keeps on the device (parameters and buffers; int8 values and scales
+    with ``weights_int8``), and its ``forward`` the model's forward as it
+    runs it (normalised (B, 3, S, S) images -> (logits, iou)).
+
+    ``mesh`` (frame-axis data parallelism over several cards) is not
+    ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "make_clip_segmentor(mesh=...) (frame-axis data parallelism) is "
             "not ported yet: ROADMAP.md, queue 1, item 6")
     model.eval()
     device = next(model.parameters()).device
+    if weights_int8:
+        net, qweights = int8_serving_copy(model)
+        kept = [t for n, t in net.state_dict().items() if n not in qweights]
+        resident = tensor_bytes(kept + list(qweights.values()))
+        dtype = net.dtype
+
+        def forward(x: torch.Tensor):
+            return torch.func.functional_call(
+                net, dequantize_state(qweights, dtype), (x,))
+    else:
+        net = model
+        resident = tensor_bytes(model.state_dict().values())
+        forward = model
 
     @torch.no_grad()
     def run_batch(chunk: torch.Tensor) -> torch.Tensor:
-        logits, _ = model(preprocess_frames(chunk, model.image_size))
+        logits, _ = forward(preprocess_frames(chunk, net.image_size))
         return torch.argmax(logits, dim=1).to(torch.uint8)
 
     def _labels(clip: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -172,4 +193,6 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
         return _labels(torch.from_numpy(frames), th, tw).cpu().numpy()
 
     segment.labels_device = labels_device
+    segment.resident_weight_bytes = resident
+    segment.forward = forward
     return segment

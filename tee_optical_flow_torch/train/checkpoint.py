@@ -67,12 +67,15 @@ def load_run_config(dir_checkpoint: str) -> TrainConfig:
 def model_kwargs_of_run(run_args: Dict[str, Any]) -> Dict[str, Any]:
     """The registry builder's keyword arguments that an adapter run's
     args.json fixes beside ``num_cls`` and ``arch``: the adapter placement
-    (vit_t stages, decoder); {} for other runs."""
+    (vit_t stages as ``adapter_stages``, vit_b/l/h blocks as
+    ``adapter_blocks``, as the JAX package's cli/train.py chooses; the
+    decoder's); {} for other runs."""
     kw: Dict[str, Any] = {}
     if run_args.get("finetune_type") == "adapter":
         if run_args.get("if_encoder_adapter"):
-            kw["adapter_stages"] = tuple(
-                run_args.get("encoder_adapter_depths") or ())
+            key = ("adapter_stages" if run_args.get("arch", "vit_t")
+                   == "vit_t" else "adapter_blocks")
+            kw[key] = tuple(run_args.get("encoder_adapter_depths") or ())
         kw["use_decoder_adapter"] = bool(
             run_args.get("if_mask_decoder_adapter"))
     return kw

@@ -310,7 +310,8 @@ def make_train_step(model: nn.Module, runtime: TrainConfigRuntime, *,
             raise ValueError(
                 f"finetune_type={finetune_type!r} selected ZERO trainable "
                 "parameters — for 'adapter' the model must be built with "
-                "adapter modules (adapter_stages/use_decoder_adapter), for "
+                "adapter modules (adapter_stages/adapter_blocks/"
+                "use_decoder_adapter), for "
                 "'lora' pass init_lora factors")
         return TrainState(model=model,
                           lora=lora_params if finetune_type == "lora"

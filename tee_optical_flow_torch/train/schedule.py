@@ -12,10 +12,13 @@ depth = sum(depths), block k gets lr scale decay^(depth-1-k), the patch
 embed gets the scale of block 0, each PatchMerging the scale of the last
 block of its stage, and everything else (the SAM neck, the prompt
 encoder, the mask decoder) 1.0. The JAX package keys this on flax names
-(``patch_embed_conv*``, ``stage{i}_block{j}``, ``merge{i}``); the port on
-its own parameter names (``image_encoder.patch_embed``,
-``image_encoder.layers.{i}.blocks.{j}``, ``image_encoder.layers.{i}.
-downsample``), with the same rules. The scale becomes the parameter
+that only TinyViT has (``patch_embed_conv*``, ``stage{i}_block{j}``,
+``merge{i}``); the port on TinyViT's own parameter names
+(``image_encoder.patch_embed.seq``, ``image_encoder.layers.{i}.blocks.
+{j}``, ``image_encoder.layers.{i}.downsample``), with the same rules. So a
+ViT-Det encoder (vit_b/l/h: ``image_encoder.patch_embed.proj``,
+``image_encoder.blocks.{i}``) keeps 1.0 everywhere, as in the JAX
+package. The scale becomes the parameter
 group's lr factor, so it multiplies the decoupled weight decay too, as
 the JAX package's transform chained after ``adamw`` does.
 """
@@ -64,7 +67,7 @@ def tinyvit_lr_scale_for_name(name: str, decay: float,
     def scale(k: int) -> float:
         return decay ** (depth - 1 - k)
 
-    if name.startswith("image_encoder.patch_embed."):
+    if name.startswith("image_encoder.patch_embed.seq."):
         return scale(0)
     m = _BLOCK_RE.match(name)
     if m:

@@ -15,7 +15,8 @@ against the JAX package's, on the CPU and the same seeded numpy inputs.
     an existing file is skipped unless --recalculate;
   * load_segmentor: a checkpoint_best.pth gives the file's parameters,
     equal to the JAX load_segmentor's variables carried across by
-    models/convert; its four refusals;
+    models/convert; its two refusals (an orbax-only directory,
+    data_axis > 1); int8 weights and a vit_b args.json served;
   * the config-5 CLI run (RVIO_2class, WASE, saliency, waveforms, two
     chunks) equal bit for bit to the port's own process_video on the same
     DICOM and checkpoint (process_video is held to the JAX package by
@@ -347,9 +348,7 @@ def test_load_segmentor_reads_the_pth_as_jax_does(tmp_path, monkeypatch):
 
 _SEG_REFUSALS = {
     "orbax": (dict(pth=False), dict(), "item 8"),
-    "int8": (dict(), dict(model_dtype="int8"), "item 4"),
     "data_axis": (dict(), dict(data_axis=2), "item 6"),
-    "vit_b": (dict(arch="vit_b", pth=False), dict(), "item 4"),
 }
 
 
@@ -363,6 +362,37 @@ def test_load_segmentor_refusals(tmp_path, name):
         t_cli.load_segmentor(ckpt, device="cpu", **call)
     with pytest.raises(TError):
         t_cli.load_segmentor(ckpt, model_dtype="int4", device="cpu")
+
+
+@pytest.mark.parametrize("case", ["int8", "vit_b"])
+def test_load_segmentor_serves_int8_and_vit_b(tmp_path, monkeypatch, case):
+    """model_dtype="int8": the checkpoint's model built in bfloat16 and
+    served with int8 weights (fewer resident bytes than the bfloat16
+    segmentor's float32 parameters); an args.json that says vit_b: the
+    seeded vit_b (ViT-Det, 768 wide, 12 blocks) at 1024."""
+    from tee_optical_flow_torch.models.image_encoder import ImageEncoderViT
+
+    if case == "int8":
+        ckpt = _checkpoint_dir(tmp_path / "run")
+        call = dict(model_dtype="int8")
+    else:
+        ckpt = _checkpoint_dir(tmp_path / "run", arch="vit_b", pth=False)
+        call = dict(model_dtype="float32")
+    seen = []
+    _capture_model(monkeypatch, t_sam, seen)
+    seg = t_cli.load_segmentor(ckpt, device="cpu", **call)
+    (model,), kw = seen[0]
+    assert model.image_size == 1024 and not model.training
+    if case == "int8":
+        assert kw == {"micro_batch": 4, "weights_int8": True}
+        assert model.dtype == torch.bfloat16
+        full = t_sam.make_clip_segmentor(model)
+        assert seg.resident_weight_bytes < 0.4 * full.resident_weight_bytes
+    else:
+        assert kw == {"micro_batch": 4}
+        enc = model.image_encoder
+        assert isinstance(enc, ImageEncoderViT) and len(enc.blocks) == 12
+        assert enc.pos_embed.shape == (1, 64, 64, 768)
 
 
 # --- cli/process: config 5 at a small size -----------------------------------

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1, the block loop with K2, the median and K3)
 against their plain PyTorch versions, and the SAM segmentor and one SAM
-fine-tuning step against their CPU runs, on the card. Marked ``cuda``;
+fine-tuning step against their CPU runs, on the card (vit_t, and vit_b at
+a small image). Marked ``cuda``;
 without a CUDA device every test skips, decided inside the ``card``
 fixture so that every worker collects the same tests.
 
@@ -527,3 +528,40 @@ def test_train_step_card_matches_cpu(card):
         else:
             assert float((got[name] - r).abs().max()) <= \
                 TRAIN_GRAD_REL * scale, name
+
+
+# vit_b (ViT-Det at its full 768 width, 12 blocks) at a small image (256:
+# a 16x16 token grid, windows of 14 padded to 28) with seeded random
+# weights: float32 on the card with TF32 off against the CPU (logits within
+# SAM_F32_REL of their range, labels at least SAM_F32_AGREE equal), and
+# the int8 segmentor's logits against the bfloat16 model's on the card
+# within INT8_REL of their largest magnitude (the JAX package's bound,
+# tests/test_models.py)
+INT8_REL = 0.15
+
+
+def test_sam_vit_b_card_matches_cpu(card):
+    from tee_optical_flow_torch.models.registry import build_sam_vit_b
+    from tee_optical_flow_torch.models.sam import (
+        make_clip_segmentor, preprocess_frames,
+    )
+
+    frames = (np.random.default_rng(1).uniform(size=(2, 96, 128, 3)) * 255
+              ).astype(np.uint8)
+    kw = dict(num_classes=3, image_size=256, seed=0)
+    cpu = build_sam_vit_b(device="cpu", **kw)
+    gpu = build_sam_vit_b(device=card, **kw)
+    ref = _sam_logits(cpu, frames, "cpu")
+    got = _sam_logits(gpu, frames, card)
+    assert got.shape == ref.shape == (2, 3, 64, 64)
+    rel = float((got - ref).abs().max() / (ref.max() - ref.min()))
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    assert rel < SAM_F32_REL and agree >= SAM_F32_AGREE, (rel, agree)
+    bf16 = build_sam_vit_b(device=card, dtype=torch.bfloat16, **kw)
+    low = _sam_logits(bf16, frames, card)
+    q8 = make_clip_segmentor(bf16, weights_int8=True)
+    with torch.no_grad():
+        x = preprocess_frames(torch.from_numpy(frames).to(card), 256)
+        got8 = q8.forward(x)[0].float().cpu()
+    assert float((got8 - low).abs().max()) <= INT8_REL * float(
+        low.abs().max())
