@@ -65,14 +65,26 @@ arguments the TV-L1 and the DeepFlow path handed them):
     (vanilla, adapters on blocks, decoder-only LoRA; then cli.train --arch
     vit_b -> load_segmentor -> cli.process, 25 K1 calls); and the
     predictor, the automatic mask generator and torch.export on one
-    frame.
+    frame;
+  * compressed DICOM and TV-L1 gamma (phase_compressed_gamma): the
+    480x640 clip written uncompressed, RLE and JPEG-Lossless and read by
+    the native C++ reader (csrc/dicomlite.cpp, built with g++), bit-equal;
+    process_video(mode="otsu", OF_algo="TVL1") on the JPEG-Lossless file
+    (25 K1 calls, its saved layout bit-equal to the uncompressed run's);
+    process_video with tvl1_gamma=1.0 under the production config, whose
+    5x5 medians launch the standalone CUDA median, held bit-equal on the
+    path's own arguments; the JAX package's brightness-ramp case; the
+    legacy shim's statistics against the CPU; PromptAutoEncoder at 1024
+    card against CPU.
 
 It checks what comes out (schema, wall end-point error against the
-analytic motion, launch counts per path, K1's one device launch per
-call, the block loop's and K3's device launches per call). Imports
-nothing of JAX. ``k3_tuning()`` and ``k2_tuning()`` (run on their own)
-time K3 and the block loop under builds with other tiles and steps per
-launch; ``vitdet_check()`` runs phase_vitdet alone. Exits non-zero,
+analytic motion, launch counts per path, and the device launches per
+call and per clip from the kernel library's own counter, which a
+profiler trace may only undercount). Imports nothing of JAX.
+``k3_tuning()`` and ``k2_tuning()`` (run on their own) time K3 and the
+block loop under builds with other tiles and steps per launch;
+``vitdet_check()`` runs phase_vitdet alone, ``compressed_gamma_check()``
+phase_compressed_gamma (after phase_cohort, for its dataset). Exits non-zero,
 with no result line, when there is no CUDA device or a phase fails.
 
 Output: progress lines, each after the set-up headed by the card's name
@@ -226,6 +238,27 @@ VITDET_INT8_REL = 0.15
 VITDET_TRAIN_STEPS = 5
 VITDET_ADAPTER_BLOCKS = (0, 1, 10, 11)
 VITDET_AMG_POINTS = 4
+
+# the compressed-DICOM and gamma phase (phase_compressed_gamma): the main
+# path's 33x480x640 clip written uncompressed, RLE and JPEG-Lossless and
+# read through read_dicom_clip (DICOM_READS timed reads each, the least
+# kept); TV-L1 with OpenCV's illumination term at GAMMA under the
+# production config, held to the TV-L1 wall bounds; its standalone 5x5
+# medians, GAMMA_MEDIANS_EPS0 per clip at epsilon 0 (5 levels x 5 warps x
+# 10 outer iterations x u and v; counted on GAMMA_EPS0_FRAMES frames, as
+# the count does not depend on the pairs); the JAX package's
+# brightness-ramp case (tests/test_tvl1.py: 64x80, shift (1.5, -1.0) px,
+# a 0-30 ramp; 3 scales, 5 warps, 6 x 20 iterations): median end-point
+# error under GAMMA_RAMP_BOUND px at gamma 1 and over GAMMA_RAMP_PLAIN_MIN
+# at gamma 0; the legacy shim's statistics against their CPU recomputation
+# (COHORT_ROW_RTOL); PromptAutoEncoder at PAE_SIZE on PAE_FRAMES frames,
+# float32, card against CPU within PAE_REL of the output's max-abs
+GAMMA = 1.0
+GAMMA_MEDIANS_EPS0 = 5 * 5 * 10 * 2
+GAMMA_EPS0_FRAMES = 4
+GAMMA_RAMP_BOUND, GAMMA_RAMP_PLAIN_MIN = 0.1, 0.5
+DICOM_READS = 3
+PAE_SIZE, PAE_FRAMES, PAE_REL = 1024, 4, 1e-4
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -503,6 +536,12 @@ def phase_setup():
     for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    from tee_optical_flow_torch.io import dicom_native
+
+    t0 = time.perf_counter()
+    dicom_native.native_available()
+    log(f"native DICOM reader (csrc/dicomlite.cpp, g++) loaded in "
+        f"{time.perf_counter() - t0:.1f} s: {dicom_native.build_info}")
     try:
         import h5py  # noqa: F401
         has_h5py = True
@@ -633,7 +672,7 @@ def phase_k3(captured, calls):
         resident = dk.resident(load_library(), h, w)
         want = k3_device_launches(resident, kw["psi_iters"], kw["sor_iters"])
         dev = device_launches(lambda: dk.sor_sweeps(*planes, match, **kw),
-                              DEEPFLOW_DEVICE_KERNELS, expect=want)
+                              DEEPFLOW_DEVICE_KERNELS)
         assert dev == want, (tag, dev, want)
         n_in = len(planes) + (3 if match else 0)
         ops_px = kw["psi_iters"] * (
@@ -688,38 +727,35 @@ def record_tvl1(name, shapes, captured, calls, every=False):
         setattr(tt, name, inner)
 
 
-def device_launches(fn, names, expect=None, traces=5,
-                    max_traces=20) -> int:
-    """Device kernels named in ``names`` that one call of fn() launches,
-    counted by torch.profiler: the most that any of ``traces`` traces
-    shows, as a trace may lose a kernel's event (one showed none of K1's
-    single launch on an H100, three in a row 11 of K3's 12, five in a row
-    59 of the block loop's 60) and never adds one. Given ``expect``, the
-    design's count, tracing stops at the first trace that reaches it, or
-    after ``max_traces``; the caller still asserts the count."""
+def device_launches(fn, names, lib=None) -> int:
+    """Device launches that one call of fn() issues from the kernel library
+    (``lib``, the default one unless given), read from the library's own
+    count (cuda_lib.device_launch_count: each C entry counts a launch once
+    the launch call returned cudaSuccess). The profiler stays as a
+    cross-check: a trace of a second call may show fewer of ``names``'
+    kernels (it may lose events: one showed none of K1's single launch,
+    others 59 of the block loop's 60) but never more, and the second call
+    must count the same."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    mark = torch.zeros(1, device="cuda")
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+
     counts = []
-    for _ in range(traces if expect is None else max_traces):
+    for traced in (False, True):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # kernels of no interest on each side of the call, so that an
-            # event lost at either end of the trace is not one of fn's
-            for _ in range(8):
-                mark.add_(1)
-            torch.cuda.synchronize()
+        device_launch_count(lib, reset=True)
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
             fn()
             torch.cuda.synchronize()
-            mark.add_(1)
-            torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and any(is_kernel(e.name, n) for n in names)))
-        if expect is not None and max(counts) >= expect:
-            break
-    return max(counts)
+        counts.append(device_launch_count(lib, reset=True))
+    assert counts[0] == counts[1], counts
+    seen = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(is_kernel(e.name, n) for n in names))
+    assert seen <= counts[0], (seen, counts[0])
+    return counts[0]
 
 
 def phase_k1(captured, calls):
@@ -758,7 +794,7 @@ def phase_k1(captured, calls):
             assert all(bool(torch.isfinite(t).all()) for t in got)
             ms = cuda_ms(lambda: tk.tvl1_outer_loop(*args, **kwe), 5)
             dev = device_launches(lambda: tk.tvl1_outer_loop(*args, **kwe),
-                                  TVL1_DEVICE_KERNELS, expect=1)
+                                  TVL1_DEVICE_KERNELS)
             assert dev == 1, (tag, dev)
             outer, inner = kw["outer_iters"], kw["inner_iters"]
             if eps > 0:
@@ -796,10 +832,14 @@ def phase_k1(captured, calls):
 
 
 def reset_counts():
+    """Every wrapper's launch count, and the kernel library's own count of
+    device launches (cuda_lib.device_launch_count), to 0."""
     from tee_optical_flow_torch.ops import deepflow_kernels as dk
     from tee_optical_flow_torch.ops import tvl1_kernels as tk
     from tee_optical_flow_torch.ops import warp as tw
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
 
+    device_launch_count(reset=True)
     tk.tvl1_outer_loop.launches = 0
     tk.tvl1_block_loop.launches = 0
     tk.tvl1_inner_block.launches = 0
@@ -919,17 +959,25 @@ def profile_clip(run_clip):
 # DeepFlow: 5 levels x 3 fixed points of K3. TV-L1 at 600x800: the finest
 # level's 5 warps take the block loop (median fused in), the 4 coarser
 # levels K1; the 480x640 TV-L1 bounds hold there too (the reading is
-# printed). SAM: the segmentor's masks, then the 480x640 TV-L1 flow
+# printed). SAM: the segmentor's masks, then the 480x640 TV-L1 flow.
+# device_launches: the kernel library's own count over the clip
+# (cuda_lib.device_launch_count): K1 1 per call; K3 12 per call at the
+# three tiled levels and 1 at the two resident ones (3 psi rounds of 12
+# SOR iterations); the block loop 70 per call at epsilon 0.01
 _NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
          "median_filter_5x5": 0, "sor_sweeps": 0}
 PATHS = {
     "TVL1": dict(mode="otsu", algo="TVL1",
                  counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
                  device={"outer_loop_kernel"},
+                 device_launches=TV_LEVELS * TV_WARPS,
                  bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
     "deepflow": dict(mode="otsu", algo="deepflow",
                      counts=dict(_NONE, sor_sweeps=DF_LEVELS * DF_FP_ITERS),
                      device=set(),
+                     device_launches=DF_FP_ITERS * (
+                         3 * k3_device_launches(False, 3, 12)
+                         + 2 * k3_device_launches(True, 3, 12)),
                      bounds=(DF_WALL_MEDIAN_EPE_PX, DF_WALL_P95_EPE_PX)),
     "TVL1 600x800": dict(
         mode="otsu", algo="TVL1",
@@ -937,10 +985,12 @@ PATHS = {
                     tvl1_block_loop=TV_WARPS),
         device={"outer_loop_kernel", "block_sweep_kernel",
                 "block_end_kernel"},
+        device_launches=(TV_LEVELS - 1) * TV_WARPS + TV_WARPS * 10 * (6 + 1),
         bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
     "SAM": dict(mode="RVIO_2class", algo="TVL1",
                 counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
                 device={"outer_loop_kernel"},
+                device_launches=TV_LEVELS * TV_WARPS,
                 bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
 }
 
@@ -959,6 +1009,7 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         compute_clip_flow, process_video,
     )
     from tee_optical_flow_torch.io.dicom import read_dicom_clip
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
 
@@ -995,7 +1046,11 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t0)
         counts.append(read_counts())
-        log(f"process_video: {clip_s[-1]:.3f} s, launches {counts[-1]}")
+        dev = device_launch_count()
+        log(f"process_video: {clip_s[-1]:.3f} s, launches {counts[-1]}, "
+            f"{dev} device launches (the library's count; design "
+            f"{path['device_launches']})")
+        assert dev == path["device_launches"], (name, dev)
         log("  stages (host clock, s): " + ", ".join(
             f"{k} {v['total_s']:.3f}" for k, v in get_stage_report().items()))
     for c in counts:
@@ -1014,6 +1069,8 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
     check_outputs(saved, n, h, w, truth, path["bounds"], mode)
     device = profile_clip(lambda: process_video(dcm, out, segmentor, **kw))
     assert set(device["tvl1.cu"]) <= path["device"], (name, device)
+    traced = sum(c for ours in device.values() for c, _ in ours.values())
+    assert traced <= path["device_launches"], (name, traced)
 
     # the solver alone, on the same flow inputs, timed to completion
     _, arr = read_dicom_clip(dcm)
@@ -1124,7 +1181,7 @@ def k3_tuning():
 
             err = max_abs(run(), ref)
             ms = cuda_ms(run, 10)
-            dev = device_launches(run, DEEPFLOW_DEVICE_KERNELS)
+            dev = device_launches(run, DEEPFLOW_DEVICE_KERNELS, lib)
             s = defines.get("K3_S", K3_S)
             tile = (defines.get("K3_EW", K3_TILE[0]),
                     defines.get("K3_EH", K3_TILE[1]))
@@ -1187,7 +1244,7 @@ def k2_tuning():
 
             err = max_abs(run(), ref)
             ms = cuda_ms(run, 3)
-            dev = device_launches(run, TVL1_DEVICE_KERNELS)
+            dev = device_launches(run, TVL1_DEVICE_KERNELS, lib)
             s = defines.get("K2_S", K2_S)
             tile = (defines.get("K2_EW", K2_TILE[0]),
                     defines.get("K2_EH", K2_TILE[1]))
@@ -1281,7 +1338,7 @@ def phase_k2(captured, calls):
         ms = cuda_ms(lambda: tk.tvl1_block_loop(*args, **kwe), 3)
         want = k2_device_launches(lib, outer, inner, eps)
         dev = device_launches(lambda: tk.tvl1_block_loop(*args, **kwe),
-                              TVL1_DEVICE_KERNELS, expect=want)
+                              TVL1_DEVICE_KERNELS)
         assert dev == want, (tag, dev, want)
         pair_blocks = sum(blocks)
         pair_steps = pair_blocks * inner
@@ -1307,7 +1364,7 @@ def phase_k2(captured, calls):
         clip_ms += cuda_ms(lambda: tk.tvl1_block_loop(*a, **k), 3)
         want = k2_device_launches(lib, outer, inner, k["epsilon"])
         dev = device_launches(lambda: tk.tvl1_block_loop(*a, **k),
-                              TVL1_DEVICE_KERNELS, expect=want)
+                              TVL1_DEVICE_KERNELS)
         assert dev == want, (dev, want)
         clip_dev += dev
     out["clip_device_ms"] = clip_ms
@@ -1328,7 +1385,7 @@ def phase_k2(captured, calls):
     ms = cuda_ms(lambda: tk.tvl1_inner_block(*args, **kw2), 5)
     plain_ms = cuda_ms(lambda: tk.tvl1_inner_block_plain(*args, **kw2), 2)
     dev = device_launches(lambda: tk.tvl1_inner_block(*args, **kw2),
-                          TVL1_DEVICE_KERNELS, expect=sweeps)
+                          TVL1_DEVICE_KERNELS)
     assert dev == sweeps, (dev, sweeps)
     bms, by = bound(16 * 4 * npx, inner * OPS_STEP * npx)
     own = b * k2_own_bytes(h, w, inner, sweeps, use_median=False)
@@ -2981,6 +3038,381 @@ def phase_vitdet(clip, workdir, has_h5py):
     return out
 
 
+def _same_layout(a, b, where=""):
+    """Whether two optical_flow_layout dicts are equal, arrays bit for
+    bit; raises AssertionError naming the first difference."""
+    assert type(a) is type(b), (where, type(a), type(b))
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), (where, sorted(a), sorted(b))
+        for k in a:
+            _same_layout(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_layout(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        assert np.array_equal(a, b), where
+    else:
+        assert a == b, (where, a, b)
+
+
+def _ramp_pair():
+    """tests/test_tvl1.py's gamma case (seed 0): a 64x80 texture shifted
+    by (1.5, -1.0) px with a 0-30 brightness ramp on the second frame."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(0)
+    img = ndimage.gaussian_filter(rng.uniform(size=(64, 80)), 2.5)
+    img = ((img - img.min()) / (img.max() - img.min()) * 200 + 20
+           ).astype(np.float32)
+    shifted = ndimage.shift(img, (-1.0, 1.5), order=3, mode="nearest")
+    ramp = np.linspace(0, 30, 80, dtype=np.float32)[None, :]
+    return img, np.clip(shifted + ramp, 0, 255).astype(np.float32)
+
+
+def _statistics_only(self, filt_arr, frame_times, sys_frames, dia_frames,
+                     nframes, *args, cc_method="angle", **kw):
+    """VisualizationManager.plot_peak_line without the drawing: the
+    9-tuple it returns with return_statistics (the card's machine has no
+    matplotlib)."""
+    return self.single_statistics(self.single_peak_data(
+        filt_arr, frame_times, sys_frames, dia_frames, nframes,
+        cc_method=cc_method))
+
+
+def _radlong_statistics_only(self, hi_rad, lo_rad, hi_long, lo_long,
+                             frame_times, sys_frames, dia_frames, nframes,
+                             *args, cc_method="angle", **kw):
+    """plot_peak_line_radlong without the drawing: its 18-tuple."""
+    rad = self.radlong_peak_data(hi_rad, lo_rad, frame_times, sys_frames,
+                                 dia_frames, nframes, cc_method=cc_method)
+    lng = self.radlong_peak_data(hi_long, lo_long, frame_times, sys_frames,
+                                 dia_frames, nframes, cc_method=cc_method)
+    return self.radlong_statistics(rad, lng)
+
+
+def phase_compressed_gamma(clip, truth, workdir, layout):
+    """Compressed DICOM clips, TV-L1 gamma, the legacy shim and
+    PromptAutoEncoder on the card.
+
+      * the native reader: builds csrc/dicomlite.cpp with g++ (seconds
+        printed) and asserts it loads;
+      * the 33x480x640 clip written uncompressed, RLE and JPEG-Lossless by
+        the port's writer, each read through read_dicom_clip with the
+        native reads counted (a silent fall-back to the Python parser
+        fails), bit-equal to the clip; the least of DICOM_READS reads of
+        each, and of the uncompressed file through the pure-Python parser;
+      * process_video(mode="otsu", OF_algo="TVL1") on the JPEG-Lossless
+        file and on the uncompressed one: 25 K1 calls and 25 device
+        launches each, the saved layouts bit-equal;
+      * process_video with tvl1_gamma=GAMMA under the production config on
+        the uncompressed file: the wall end-point error within the TV-L1
+        bounds, no K1, every device launch a standalone median
+        (tvl1_median5x5, counted by its wrapper and by the library); the
+        median bit-equal to its plain version on the finest level's
+        arguments the path handed it, timed there; the gamma solve alone
+        at epsilon 0 on GAMMA_EPS0_FRAMES frames with GAMMA_MEDIANS_EPS0
+        median launches;
+      * the brightness-ramp case on the card at gamma 1 and 0;
+      * legacy.percentile_plot and percentile_plot_radlong on the config-4
+        dataset (``layout``) through both gates with the drawing left out,
+        against the same calls on the CPU from the card's AV centroid
+        track (COHORT_ROW_RTOL relative, integers equal);
+      * PromptAutoEncoder (seeded random weights) on PAE_FRAMES
+        preprocessed frames at PAE_SIZE, card against CPU in float32.
+
+    Returns the stage seconds and readings, and the median's record for
+    the kernels line."""
+    import torch
+
+    from tee_optical_flow_torch import legacy
+    from tee_optical_flow_torch.analysis import centroid as cen
+    from tee_optical_flow_torch.analysis import histograms as hist
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.dataset import OpticalFlowDataset
+    from tee_optical_flow_torch.flow.pipeline import (
+        compute_clip_flow, process_video,
+    )
+    from tee_optical_flow_torch.io import dicom_native
+    from tee_optical_flow_torch.io.dicom import read_dicom_clip
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+    from tee_optical_flow_torch.models.prompt_encoder import (
+        PromptAutoEncoder,
+    )
+    from tee_optical_flow_torch.models.sam import preprocess_frames
+    from tee_optical_flow_torch.ops import tvl1 as tt
+    from tee_optical_flow_torch.ops import warp as tw
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
+    from tee_optical_flow_torch.utils import get_stage_report
+    from tee_optical_flow_torch.viz.manager import VisualizationManager
+
+    n, h, w = clip.shape
+    out = {}
+    log(f"--- compressed DICOM and TV-L1 gamma on {n}x{h}x{w}")
+    assert dicom_native.native_available(), "dicomlite did not build"
+    out["dicomlite_build_s"] = dicom_native.build_info["seconds"]
+    log(f"dicomlite: g++ build {out['dicomlite_build_s']:.2f} s in this "
+        f"process (0 where an earlier process built it), "
+        f"{dicom_native.build_info['path']}")
+
+    # the clip in three transfer syntaxes, read back natively
+    rgb = np.repeat(clip[..., None], 3, axis=-1)
+    paths, sizes = {}, {}
+    for syntax in ("native", "rle", "jpeg_lossless"):
+        paths[syntax] = os.path.join(workdir, f"echo_{syntax}.dcm")
+        t0 = time.perf_counter()
+        write_dicom_clip(paths[syntax], rgb, frame_rate=FPS,
+                         pixel_spacing=SPACING_CM, transfer_syntax=syntax)
+        sizes[syntax] = os.path.getsize(paths[syntax])
+        log(f"write_dicom_clip {syntax}: {time.perf_counter() - t0:.2f} s, "
+            f"{sizes[syntax] / 1e6:.2f} MB")
+    native_reads = []
+    inner_read = dicom_native.native_read
+
+    def counting(path):
+        got = inner_read(path)
+        if got is not None:
+            native_reads.append(path)
+        return got
+
+    read_s = {}
+    with substituted(dicom_native, "native_read", counting):
+        for syntax, path in paths.items():
+            times = []
+            for _ in range(DICOM_READS):
+                t0 = time.perf_counter()
+                _, arr = read_dicom_clip(path)
+                times.append(time.perf_counter() - t0)
+                assert np.array_equal(arr, rgb), syntax
+            read_s[f"native_{syntax}"] = min(times)
+    assert len(native_reads) == 3 * DICOM_READS, native_reads
+    with substituted(dicom_native, "native_read", lambda path: None):
+        times = []
+        for _ in range(DICOM_READS):
+            t0 = time.perf_counter()
+            _, arr = read_dicom_clip(paths["native"])
+            times.append(time.perf_counter() - t0)
+        assert np.array_equal(arr, rgb)
+        read_s["python_native"] = min(times)
+    log("read_dicom_clip seconds (least of "
+        f"{DICOM_READS}, host clock): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in read_s.items())
+        + f"; {len(native_reads)} native reads, every array bit-equal")
+    out.update(read_s=read_s, file_mb={k: v / 1e6 for k, v in sizes.items()})
+
+    # the production path on the JPEG-Lossless file and the uncompressed one
+    cfg = default_optical_flow_config()
+    layouts, saved = {}, {}
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        saved["layout"] = optical_flow_layout(flow_arr, echo_gray, mask_dict,
+                                              metadata, waveforms, **kw)
+        saved.update(flow=flow_arr, echo=echo_gray, masks=mask_dict,
+                     attrs={"nframes": metadata["nframes"],
+                            "mode": kw["mode"],
+                            "frame_rate": metadata["frame_rate"],
+                            "pixel_spacing": metadata["pixel_spacing"]})
+
+    kw = dict(verbose=False, mode="otsu", OF_algo="TVL1", no_saliency=True,
+              _save_fn=capture)
+    stage_s = {}
+    for syntax in ("jpeg_lossless", "native"):
+        get_stage_report(reset=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        process_video(paths[syntax], "unused.hdf5", None, config=cfg, **kw)
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        counts, dev = read_counts(), device_launch_count()
+        stages = get_stage_report()
+        stage_s[syntax] = {k: v["total_s"] for k, v in stages.items()}
+        log(f"process_video otsu TVL1 on the {syntax} DICOM: {clip_s:.3f} s,"
+            f" launches {counts}, {dev} device launches; dicom_read stage "
+            f"{stage_s[syntax].get('dicom_read', float('nan')):.3f} s")
+        assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), \
+            counts
+        assert dev == TV_LEVELS * TV_WARPS, dev
+        layouts[syntax] = saved.pop("layout")
+        out[f"otsu_{syntax}_clip_s"] = clip_s
+    _same_layout(layouts["jpeg_lossless"], layouts["native"])
+    log("the JPEG-Lossless clip's saved layout is bit-equal to the "
+        "uncompressed clip's")
+    out["dicom_read_stage_s"] = {k: v.get("dicom_read")
+                                 for k, v in stage_s.items()}
+
+    # TV-L1 gamma at full width under the production config
+    gcfg = default_optical_flow_config()
+    gcfg.tvl1_gamma = GAMMA
+    medians = {}
+    inner_median = tt.median_filter_5x5
+
+    def recording(f):
+        if tuple(f.shape) not in medians:
+            medians[tuple(f.shape)] = f.clone()
+        return inner_median(f)
+
+    recording.__dict__ = inner_median.__dict__
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with substituted(tt, "median_filter_5x5", recording):
+        process_video(paths["native"], "unused.hdf5", None, config=gcfg,
+                      **kw)
+    torch.cuda.synchronize()
+    gamma_s = time.perf_counter() - t0
+    counts, dev = read_counts(), device_launch_count()
+    log(f"process_video otsu TVL1 gamma={GAMMA} (epsilon "
+        f"{gcfg.tvl1_epsilon}): {gamma_s:.3f} s, launches {counts}, {dev} "
+        f"device launches (at most {GAMMA_MEDIANS_EPS0}: the epsilon stop "
+        f"ends a warp's outer loop once every pair is frozen)")
+    assert counts == dict(_NONE, median_filter_5x5=dev), counts
+    assert 0 < dev <= GAMMA_MEDIANS_EPS0, dev
+    check_outputs(saved, n, h, w, truth, (WALL_MEDIAN_EPE_PX,
+                                          WALL_P95_EPE_PX))
+    out.update(gamma_clip_s=gamma_s, gamma_median_launches=dev)
+
+    # the design's median count: the solve alone at epsilon 0, on the first
+    # GAMMA_EPS0_FRAMES frames (the count does not depend on the pairs)
+    images = img2uint8(gray_from_clip(torch.from_numpy(
+        clip[:GAMMA_EPS0_FRAMES]).cuda()))
+    ecfg = default_optical_flow_config()
+    ecfg.tvl1_gamma, ecfg.tvl1_epsilon = GAMMA, 0.0
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compute_clip_flow(images, "TVL1", ecfg)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = read_counts()["median_filter_5x5"]
+    log(f"gamma solve alone at epsilon 0, {images.shape[0] - 1} pairs at "
+        f"{h}x{w}: {solve_s:.3f} s, {launches} median launches (design "
+        f"{GAMMA_MEDIANS_EPS0})")
+    assert launches == GAMMA_MEDIANS_EPS0, launches
+    out.update(gamma_eps0_solve_s=solve_s, gamma_eps0_pairs=len(images) - 1,
+               gamma_eps0_medians=launches)
+
+    # the standalone median on the finest level's arguments
+    arg = medians[max(medians, key=lambda s: s[1] * s[2])]
+    b, lh, lw = arg.shape
+    npx = b * lh * lw
+    got = tw.median_filter_5x5(arg)
+    ref = tw.median_filter_5x5_plain(arg)
+    err = float((got - ref).abs().max())
+    assert torch.equal(got, ref), err
+    ms = cuda_ms(lambda: tw.median_filter_5x5(arg), 20)
+    plain_ms = cuda_ms(lambda: tw.median_filter_5x5_plain(arg), 5)
+    bms, by = bound(2 * 4 * npx, OPS_MEDIAN_PLANE * npx)
+    log(f"median 5x5 on the gamma path's ({b},{lh},{lw}) arguments: "
+        f"max|kernel - plain| = {err} (tolerance 0: bit-equal); {ms:.4f} ms "
+        f"kernel, {plain_ms:.4f} ms plain, bound {bms:.4f} ms ({by}); "
+        f"shapes the path handed it: {sorted(medians)}")
+    median = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by, shape=[b, lh, lw])
+
+    # the JAX package's brightness-ramp case
+    i0, i1 = (torch.from_numpy(a[None]).cuda() for a in _ramp_pair())
+    ramp = {}
+    for gamma in (1.0, 0.0):
+        flow = tt.tvl1_flow_pairs(i0, i1, gamma=gamma, nscales=3, zoom=0.8,
+                                  warps=5, outer_iters=6, inner_iters=20,
+                                  use_median=True)[0].cpu().numpy()
+        flow = flow[10:-10, 10:-10]
+        ramp[gamma] = float(np.median(np.hypot(flow[..., 0] - 1.5,
+                                               flow[..., 1] + 1.0)))
+    log(f"brightness ramp 64x80: median end-point error {ramp[1.0]:.4f} px "
+        f"at gamma 1 (bound {GAMMA_RAMP_BOUND}), {ramp[0.0]:.4f} px at "
+        f"gamma 0 (must exceed {GAMMA_RAMP_PLAIN_MIN})")
+    assert ramp[1.0] < GAMMA_RAMP_BOUND and ramp[0.0] > GAMMA_RAMP_PLAIN_MIN
+    out["ramp_epe_px"] = {"gamma1": ramp[1.0], "gamma0": ramp[0.0]}
+
+    # the legacy shim on the config-4 dataset, card against CPU
+    ds = OpticalFlowDataset("echo_config4.hdf5", _file_override=layout)
+    nf = ds.nframes
+    cents = cen.calc_AV_centroid(ds.get_mask("av"), nf, device="cuda")
+    legacy_s = {}
+    with substituted(VisualizationManager, "plot_peak_line",
+                     _statistics_only), \
+            substituted(VisualizationManager, "plot_peak_line_radlong",
+                        _radlong_statistics_only):
+        for fn in (legacy.percentile_plot, legacy.percentile_plot_radlong):
+            for cc_method in ("ecg_lazy", "arterial"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(ds, "velocity", "rv", cc_method, save_dir=workdir,
+                         device="cuda")
+                legacy_s[f"{fn.__name__}_{cc_method}"] = \
+                    time.perf_counter() - t0
+                with substituted(hist, "calc_AV_centroid",
+                                 lambda *a, **k: cents):
+                    ref = fn(ds, "velocity", "rv", cc_method,
+                             save_dir=workdir, device="cpu")
+                assert len(got) == len(ref) == (
+                    18 if fn is legacy.percentile_plot_radlong else 9)
+                for i, (g, r) in enumerate(zip(got, ref)):
+                    if isinstance(r, (int, np.integer)) or r == 0:
+                        assert g == r, (fn.__name__, cc_method, i, g, r)
+                    else:
+                        assert abs(g - r) <= COHORT_ROW_RTOL * abs(r), \
+                            (fn.__name__, cc_method, i, g, r)
+                assert any(v != 0 for v in got), (fn.__name__, cc_method)
+    log("legacy percentile_plot / percentile_plot_radlong, both gates: "
+        "equal to the CPU's (floats within " + f"{COHORT_ROW_RTOL} relative)"
+        "; seconds on the card " + ", ".join(
+            f"{k} {v:.3f}" for k, v in legacy_s.items()))
+    out["legacy_s"] = legacy_s
+
+    # PromptAutoEncoder at 1024, card against CPU in float32
+    torch.manual_seed(SAM_SEED)
+    pae = PromptAutoEncoder().eval()
+    x = preprocess_frames(torch.from_numpy(rgb[:PAE_FRAMES]), PAE_SIZE)
+    with torch.no_grad():
+        _, dense_c = pae(x)
+        pae_cuda = pae.cuda()
+        xc = x.cuda()
+        sparse_g, dense_g = pae_cuda(xc)
+        pae_ms = cuda_ms(lambda: pae_cuda(xc), 10)
+    rel = float((dense_g.cpu() - dense_c).abs().max()
+                / dense_c.abs().max())
+    log(f"PromptAutoEncoder {tuple(x.shape)} -> dense "
+        f"{tuple(dense_g.shape)}, sparse {tuple(sparse_g.shape)}: "
+        f"max|card - CPU| / max|CPU| = {rel:.3g} (bound {PAE_REL}); "
+        f"{pae_ms:.3f} ms per call on the card")
+    out_hw = (PAE_SIZE - 2) // 4
+    assert tuple(dense_g.shape) == (PAE_FRAMES, 256, out_hw, out_hw)
+    assert tuple(sparse_g.shape) == (PAE_FRAMES, 0, 256)
+    assert rel <= PAE_REL, rel
+    out.update(pae_rel_err=rel, pae_ms=pae_ms)
+    return out, median
+
+
+def compressed_gamma_check() -> int:
+    """phase_cohort (for its dataset) and phase_compressed_gamma alone on
+    the 480x640 clip, after the kernels' build: a shorter call than the
+    whole smoke, for work on this phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        layout = phase_cohort(clip, workdir)["layout"]
+        t0 = time.perf_counter()
+        out, median = phase_compressed_gamma(clip, truth, workdir, layout)
+        log(f"compressed DICOM and gamma ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(dict(out, median=median)))
+    return 0
+
+
 def vitdet_check() -> int:
     """phase_vitdet alone on the 480x640 clip, after the kernels' build:
     a shorter call than the whole smoke, for work on this phase."""
@@ -3045,8 +3477,12 @@ def main() -> int:
                                              results[name][4]["masks"], dcm,
                                              seg)
         cohort = phase_cohort(clip, workdir)
-        analysis = phase_peak_plots(cohort.pop("layout"))
+        layout = cohort.pop("layout")
+        analysis = phase_peak_plots(layout)
         config5 = phase_cli(clip, workdir, has_h5py)
+        compressed, gamma_median = phase_compressed_gamma(clip, truth,
+                                                          workdir, layout)
+        del layout
     del seg, sam_labels
     k1 = phase_k1(k1_args, k1_calls)
     k3 = phase_k3(k3_args, k3_calls)
@@ -3077,7 +3513,9 @@ def main() -> int:
         path_calls=k2_counts["tvl1_block_loop"],
         clip_device_ms=k2["clip_device_ms"],
         clip_device_launches=k2["clip_device_launches"])
-    records["median_filter_5x5"] = k2["median"]
+    records["median_filter_5x5"] = dict(
+        gamma_median, k2_shape=k2["median"],
+        k2_path_launches=k2_counts["median_filter_5x5"])
     coarsest = K1_SHAPES[-1]
     records["tvl1_outer_loop"] = dict(
         k1[(K1_SHAPES[0], 0.01)], eps0=k1[(K1_SHAPES[0], 0.0)],
@@ -3097,9 +3535,10 @@ def main() -> int:
              main_counts["tvl1_outer_loop"], "main: otsu+TVL1 33x480x640"),
             ("median_filter_5x5", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:248",
-             k2_counts["median_filter_5x5"],
-             f"{k2_path} (fused into K1 and the block loop: no path "
-             f"launches it standalone)"),
+             compressed["gamma_median_launches"],
+             f"gamma: otsu+TVL1 tvl1_gamma={GAMMA} {CLIP_FRAMES}x{CLIP_H}x"
+             f"{CLIP_W} (fused into K1 and the block loop on the other "
+             f"paths)"),
             ("tvl1_inner_block", "tvl1.cu",
              "tee_optical_flow_tpu/ops/tvl1_pallas.py:141",
              k2_counts["tvl1_block_loop"],
@@ -3123,7 +3562,8 @@ def main() -> int:
                                    "true_flow", "sam_path_launches",
                                    "config4_path_launches",
                                    "config5_path_launches",
-                                   "vitb_path_launches")
+                                   "vitb_path_launches", "k2_shape",
+                                   "k2_path_launches")
                if k in rec},
         })
     for name, (_, clip_s, solver_s, _, _) in results.items():
@@ -3140,6 +3580,7 @@ def main() -> int:
     log("analysis entry points: " + json.dumps(analysis))
     log("training: " + json.dumps(train))
     log("ViT-Det: " + json.dumps(vitdet))
+    log("compressed DICOM and gamma: " + json.dumps(compressed))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -236,8 +236,7 @@ class OpticalFlowCalculationConfig(_JsonMixin):
     tvl1_outer_iterations: int = 10
     tvl1_inner_iterations: int = 30
     # epsilon: OpenCV's early-stop criterion (0 = fixed counts); gamma:
-    # OpenCV's illumination term (0 = off, the OpenCV/reference default;
-    # not yet ported: tvl1_flow_pairs raises for gamma > 0)
+    # OpenCV's illumination term (0 = off, the OpenCV/reference default)
     tvl1_epsilon: float = 0.01
     tvl1_gamma: float = 0.0
     tvl1_median_filtering: bool = True

@@ -72,6 +72,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The library's launch count, defined in tvl1.cu (each C entry adds one
+// per kernel launch it issued successfully; tee_device_launches reads it).
+extern "C" unsigned long long tee_launch_count;
+
 // coefs_kernel's tile
 #define CT_W 32
 #define CT_H 8
@@ -477,6 +481,13 @@ cudaError_t takes_resident(int H, int W, bool* resident) {
   return e;
 }
 
+// e, after counting the launch it reports when it is cudaSuccess.
+cudaError_t counted(cudaError_t e) {
+  if (e == cudaSuccess)
+    __atomic_fetch_add(&tee_launch_count, 1ULL, __ATOMIC_RELAXED);
+  return e;
+}
+
 // An error's code, with the runtime's last-error state cleared: a later
 // call of this library must not read a refused launch's error as its own.
 int fail(cudaError_t e) {
@@ -536,7 +547,7 @@ int deepflow_solve(const float* i1wx, const float* i1wy, const float* i1wxx,
                              (int)smem);
     if (e != cudaSuccess) return fail(e);
     resident_kernel<<<B, RESIDENT_THREADS, smem, st>>>(a);
-    return (int)cudaGetLastError();
+    return (int)counted(cudaGetLastError());
   }
 
   if (work == nullptr) return (int)cudaErrorInvalidValue;
@@ -569,7 +580,7 @@ int deepflow_solve(const float* i1wx, const float* i1wy, const float* i1wxx,
     ca.gamma = gamma;
     ca.beta = beta;
     coefs_kernel<<<cgrid, dim3(CT_W, CT_H), 0, st>>>(ca);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if ((e = counted(cudaGetLastError())) != cudaSuccess) return (int)e;
     for (int done = 0; done < sor_iters; done += kS) {
       SweepArgs sa;
       for (int q = 0; q < 7; ++q) sa.coef[q] = coef + q * n;
@@ -584,7 +595,7 @@ int deepflow_solve(const float* i1wx, const float* i1wy, const float* i1wxx,
       sa.omega = omega;
       sa.one_minus_omega = one_minus_omega;
       sweep_kernel<<<sgrid, K3_THREADS, kSweepSmem, st>>>(sa);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      if ((e = counted(cudaGetLastError())) != cudaSuccess) return (int)e;
       cur ^= 1;
       first = false;
     }

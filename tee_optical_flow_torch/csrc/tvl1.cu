@@ -94,8 +94,16 @@
 //     cost about as much, take any grid, and have no residency rule. A
 //     30-step block is tvl1_block_sweeps(30) = 6 launches of 5 steps, then
 //     one block_end_kernel: 70 device launches per call at 10 blocks.
-// median5x5_kernel is the standalone median; no path calls it (K1 and the
-// block loop run their own), tests and the smoke hold it to the plain one.
+// median5x5_kernel is the standalone median (tvl1_median5x5): the TV-L1
+// gamma solver, plain PyTorch like the JAX package's XLA-only gamma path,
+// launches it for each median of u and v; K1 and the block loop run their
+// own.
+//
+// Every C entry of this library (this file's and deepflow.cu's) adds one
+// to tee_launch_count for each kernel launch it issued successfully (the
+// launch call, or cudaGetLastError right after it, returned cudaSuccess);
+// tee_device_launches reads it and resets it. A run's device launches
+// are counted without a profiler, whose traces may lose events.
 
 // Parity: compile with --fmad=false and without --use_fast_math. Each
 // expression below is written in the order of the plain PyTorch version
@@ -108,6 +116,11 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// The launches counted since the last reset (see the note above).
+extern "C" {
+unsigned long long tee_launch_count = 0;
+}
 
 #define BLOCK_X 32
 #define BLOCK_Y 8
@@ -135,6 +148,13 @@ namespace cg = cooperative_groups;
 #endif
 
 namespace {
+
+// e, after counting the launch it reports when it is cudaSuccess.
+cudaError_t counted(cudaError_t e) {
+  if (e == cudaSuccess)
+    __atomic_fetch_add(&tee_launch_count, 1ULL, __ATOMIC_RELAXED);
+  return e;
+}
 
 // -------------------------------------------------------------------------
 // 5x5 median, edge-replicated: sort each of the 5 window columns with the
@@ -822,11 +842,20 @@ const char* tvl1_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// The device launches this library's C entries issued successfully since
+// the last reset; with reset != 0 the count starts again from 0.
+long long tee_device_launches(int reset) {
+  return (long long)(reset ? __atomic_exchange_n(&tee_launch_count, 0ULL,
+                                                 __ATOMIC_RELAXED)
+                           : __atomic_load_n(&tee_launch_count,
+                                             __ATOMIC_RELAXED));
+}
+
 int tvl1_median5x5(const float* in, float* out, int B, int H, int W,
                    void* stream) {
   median5x5_kernel<<<pixel_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
                      (cudaStream_t)stream>>>(in, out, H, W);
-  return (int)cudaGetLastError();
+  return (int)counted(cudaGetLastError());
 }
 
 // The block loop's sweep launches per block of n_iters steps: at least
@@ -908,12 +937,12 @@ int tvl1_block_loop(const float* rho_c, const float* i1wx, const float* i1wy,
       a.save_um = use_stop && k == 0;
       a.delta = use_stop && k == sweeps - 1;
       block_sweep_kernel<<<grid, K2_THREADS, kTileSmem, st>>>(a);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      if ((e = counted(cudaGetLastError())) != cudaSuccess) return (int)e;
     }
     if (use_stop) {
       block_end_kernel<<<B, BLOCK_THREADS, 0, st>>>(slots, a.tiles, strikes,
                                                     thresh);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      if ((e = counted(cudaGetLastError())) != cudaSuccess) return (int)e;
     }
   }
   return 0;
@@ -982,9 +1011,9 @@ int tvl1_outer_loop(const float* rho_c, const float* i1wx, const float* i1wy,
     const int grid = (int)(items < (long long)per_sm * sms
                                ? items : (long long)per_sm * sms);
     void* args[] = {&a};
-    e = cudaLaunchCooperativeKernel((const void*)outer_loop_kernel,
-                                    dim3(grid), dim3(BLOCK_X, BLOCK_Y), args,
-                                    smem, (cudaStream_t)stream);
+    e = counted(cudaLaunchCooperativeKernel(
+        (const void*)outer_loop_kernel, dim3(grid), dim3(BLOCK_X, BLOCK_Y),
+        args, smem, (cudaStream_t)stream));
   }
   cudaGetLastError();  // clear the error so later launches are not blamed
   return (int)e;

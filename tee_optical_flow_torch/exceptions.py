@@ -16,6 +16,14 @@ class DICOMReadError(OpticalFlowError):
     """Raised when a DICOM file cannot be read or decoded."""
 
 
+class WaveformLoadError(OpticalFlowError):
+    """Raised when a companion waveform file cannot be loaded."""
+
+
+class WaveformValidationError(OpticalFlowError):
+    """Raised when a waveform fails physiological validation."""
+
+
 class OpticalFlowCalculationError(OpticalFlowError):
     """Raised when flow computation fails (bad inputs, solver failure)."""
 

@@ -8,6 +8,9 @@ host-side. It reads:
     sequences (defined and undefined length), needed for
     SequenceOfUltrasoundRegions;
   * native (uncompressed) multi-frame pixel data, 8/16-bit, mono or RGB;
+  * encapsulated JPEG-Lossless (process 14) frames through the port's
+    native decoder (io/dicom_native.py), other JPEG frames through
+    cv2.imdecode where cv2 imports;
   * RLE-encapsulated frames (DICOM packbits);
   * YBR_FULL / YBR_FULL_422 -> RGB color conversion;
   * the metadata fallback chain the reference uses: PhysicalDeltaX from
@@ -15,9 +18,8 @@ host-side. It reads:
     CineRate -> FrameTime -> FrameTimeVector frame-rate fallbacks
     (calculate_optical_flow.py:315-367).
 
-JPEG-encapsulated frames (JPEG-Lossless through the JAX package's native
-decoder, baseline JPEG through cv2) are not ported yet and raise
-DICOMReadError.
+``read_dicom_clip`` tries the native C++ parser first (io/dicom_native.py,
+the GDCM role) and takes this parser for what it does not decode.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ IMPLICIT_VR_LE = "1.2.840.10008.1.2"
 EXPLICIT_VR_LE = "1.2.840.10008.1.2.1"
 DEFLATED_LE = "1.2.840.10008.1.2.1.99"
 EXPLICIT_VR_BE = "1.2.840.10008.1.2.2"
+JPEG_BASELINE = "1.2.840.10008.1.2.4.50"
+JPEG_EXTENDED = "1.2.840.10008.1.2.4.51"
+JPEG_LOSSLESS = "1.2.840.10008.1.2.4.70"
 RLE_LOSSLESS = "1.2.840.10008.1.2.5"
 
 _LONG_VRS = {b"OB", b"OW", b"OF", b"OD", b"OL", b"SQ", b"UC", b"UR", b"UT", b"UN"}
@@ -348,6 +353,56 @@ def _rle_decode_frame(payload: bytes, rows: int, cols: int,
     return arr[..., 0] if samples == 1 else arr
 
 
+def group_jpeg_fragments(payloads: List[bytes], nframes: int) -> List[bytes]:
+    """DICOM encapsulation legally splits one JPEG frame across multiple
+    pixel-data fragments. When the fragment count already equals the
+    frame count, pass through; otherwise merge consecutive fragments
+    until one ends with the JPEG EOI marker (FFD9, ignoring the even-
+    length pad byte), the frame boundary."""
+    if len(payloads) == nframes:
+        return list(payloads)
+    frames: List[bytes] = []
+    acc = bytearray()
+    for payload in payloads:
+        acc += payload
+        tail = bytes(acc[-3:])
+        if tail.endswith(b"\xff\xd9") or tail[:2] == b"\xff\xd9":
+            frames.append(bytes(acc))
+            acc = bytearray()
+    if acc:  # trailing data without EOI: keep as-is, decoder will reject
+        frames.append(bytes(acc))
+    return frames
+
+
+def _decode_jpeg_frame(payload: bytes, ts: str) -> np.ndarray:
+    """One JPEG frame: JPEG-Lossless through the native decoder (cv2
+    cannot parse SOF3 streams, and a clip must fail loudly rather than
+    mis-decode), the other syntaxes through cv2.imdecode."""
+    if ts == JPEG_LOSSLESS:
+        from .dicom_native import jpegll_decode_frame
+
+        img = jpegll_decode_frame(bytes(payload))
+        if img is None:
+            raise DICOMReadError(
+                "JPEG-Lossless (1.2.840.10008.1.2.4.70) frame could not be "
+                "decoded: the native dicomlite library (g++ build of "
+                "tee_optical_flow_torch/csrc/dicomlite.cpp) is unavailable "
+                "or the stream is not a valid process-14 scan")
+        return img
+    try:
+        import cv2
+    except ImportError as exc:
+        raise DICOMReadError(
+            f"transfer syntax {ts} needs cv2 for JPEG decode") from exc
+    img = cv2.imdecode(np.frombuffer(payload, np.uint8),
+                       cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise DICOMReadError("cv2 failed to decode encapsulated frame")
+    if img.ndim == 3:
+        img = img[..., ::-1]  # BGR -> RGB
+    return img
+
+
 def decode_pixel_data(ds: DicomDataset) -> np.ndarray:
     raw = ds.get((0x7FE0, 0x0010))
     if raw is None:
@@ -361,12 +416,12 @@ def decode_pixel_data(ds: DicomDataset) -> np.ndarray:
     planar = int(ds.get((0x0028, 0x0006), 0) or 0)
 
     if isinstance(raw, list):  # encapsulated frames
-        if ts != RLE_LOSSLESS:
-            raise DICOMReadError(
-                f"encapsulated transfer syntax {ts} (JPEG family) is not "
-                "decoded by the port yet; see ROADMAP.md, 'DICOM decode'")
-        frames = [_rle_decode_frame(payload, rows, cols, samples, bits)
-                  for payload in raw]
+        if ts == RLE_LOSSLESS:
+            frames = [_rle_decode_frame(payload, rows, cols, samples, bits)
+                      for payload in raw]
+        else:  # JPEG family: frames may span fragments
+            frames = [_decode_jpeg_frame(payload, ts) for payload
+                      in group_jpeg_fragments(raw, nframes)]
         arr = np.stack(frames) if len(frames) > 1 else frames[0][None]
         if nframes == 1:
             arr = arr[0]
@@ -411,12 +466,49 @@ def read_dicom_clip(path: str) -> Tuple[DicomDataset, np.ndarray]:
     (calculate_optical_flow.py:292-312, :522-540): grayscale multi-frame
     clips are replicated to RGB so the rest of the pipeline sees one
     layout.
+
+    Tries the native C++ parser first (io/dicom_native.py, the GDCM role)
+    and falls back to the pure-Python parser for what the native path
+    does not decode (baseline JPEG, deflate) or where its library cannot
+    be built. The native path's dataset holds the tags extract_metadata
+    reads.
     """
+    from .dicom_native import native_read
+
+    try:
+        native = native_read(path)
+    except Exception as exc:  # any native failure: the Python parser reads
+        logger.warning("native read of %s failed (%s); using the "
+                       "pure-Python parser", path, exc)
+        native = None
+    if native is not None:
+        meta, arr = native
+        ds = DicomDataset()
+        ds.set((0x0010, 0x0020), meta["patient_id"])
+        if meta["heart_rate"] is not None:
+            ds.set((0x0018, 0x1088), meta["heart_rate"])
+        if meta["frame_rate"] is not None:
+            ds.set((0x0018, 0x0040), meta["frame_rate"])
+        if meta["pixel_spacing"] is not None:
+            region = DicomDataset()
+            region.set((0x0018, 0x602C), meta["pixel_spacing"])
+            ds.set((0x0018, 0x6011), [region])
+        if meta["R_wave_data_present"]:
+            ds.set((0x0018, 0x6060), meta["R_times"].tolist())
+        ds.set((0x0028, 0x0004), meta["photometric"])
+        ds.set((0x0002, 0x0010), meta["transfer_syntax"])
+        if meta["photometric"].startswith("YBR") and arr.ndim == 4 \
+                and arr.shape[-1] == 3:
+            arr = ybr_to_rgb(arr)
+        if arr.ndim == 3:
+            arr = np.repeat(arr[..., None], 3, axis=-1)
+        return ds, np.ascontiguousarray(arr)
+
     ds = dcmread(path)
     arr = ds.pixel_array
     if should_convert_to_rgb(ds) and arr.ndim >= 3 and arr.shape[-1] == 3 \
             and not isinstance(ds.get((0x7FE0, 0x0010)), list):
-        arr = ybr_to_rgb(arr)  # raw YBR only
+        arr = ybr_to_rgb(arr)  # raw YBR only; cv2-decoded JPEG is already RGB
     if arr.ndim == 3 and arr.shape[-1] != 3:
         arr = np.repeat(arr[..., None], 3, axis=-1)  # gray clip -> RGB
     elif arr.ndim == 2:

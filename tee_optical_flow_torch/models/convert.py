@@ -6,7 +6,9 @@ arrays) across to the port: the inverse of that package's
 ``convert_mask_decoder`` (its models/convert.py), and of
 ``convert_vitdet`` for the ViT-Det encoders, giving a state dict
 under the reference torch keys that ``Sam.load_state_dict(strict=True)``
-takes. Layouts:
+takes; ``prompt_autoencoder_state_dict_from_flax`` does the same for the
+JAX package's ``PromptAutoEncoder`` (the inverse of its
+``convert_prompt_autoencoder``). Layouts:
 
   flax Conv kernel (kH, kW, I, O)            -> torch (O, I, kH, kW)
   flax depthwise kernel (k, k, 1, C)         -> torch (C, 1, k, k)
@@ -233,6 +235,21 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
     for j in range(3):
         out.dense(f"{p}iou_prediction_head.layers.{j}",
                   md["iou_prediction_head"][f"layer{j}"])
+    return out.sd
+
+
+def prompt_autoencoder_state_dict_from_flax(params: Dict[str, Any]
+                                            ) -> Dict[str, torch.Tensor]:
+    """A JAX ``PromptAutoEncoder``'s params (numpy) -> the port's
+    ``PromptAutoEncoder`` state dict: the inverse of the JAX package's
+    ``convert_prompt_autoencoder`` (its ``down_conv1/2/3`` and
+    ``down_ln1/2`` onto ``image_downscaling.{0,3,6}`` and ``{1,4}``)."""
+    out = _StateDict()
+    for idx, name in ((0, "down_conv1"), (3, "down_conv2"),
+                      (6, "down_conv3")):
+        out.conv(f"image_downscaling.{idx}", params[name])
+    out.norm2d("image_downscaling.1", params["down_ln1"])
+    out.norm2d("image_downscaling.4", params["down_ln2"])
     return out.sd
 
 

@@ -1,7 +1,8 @@
 """SAM prompt encoder (the JAX package's models/prompt_encoder.py) with the
 reference torch state-dict keys: ``pe_layer.positional_encoding_gaussian_
 matrix`` (a buffer), ``point_embeddings.{0..3}``, ``not_a_point_embed``,
-``mask_downscaling.{0,1,3,4,6}`` and ``no_mask_embed``.
+``mask_downscaling.{0,1,3,4,6}`` and ``no_mask_embed``; and the
+reference's unused ``PromptAutoEncoder``.
 
 Points, boxes and masks are all ported, so a checkpoint loads strictly;
 the pipeline takes the no-prompt path (the ``no_mask_embed`` dense
@@ -41,6 +42,47 @@ class PositionEmbeddingRandom(nn.Module):
         xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
         yy, xx = torch.meshgrid(ys, xs, indexing="ij")
         return self(torch.stack([xx, yy], dim=-1))
+
+
+class PromptAutoEncoder(nn.Module):
+    """Image-conditioned prompt embeddings (the JAX package's
+    ``PromptAutoEncoder``; reference prompt_encoder.py:50-100, unused by
+    any pipeline): a small conv stack downsamples the image itself into
+    the dense embedding, and the sparse embeddings are empty. Keys
+    ``image_downscaling.{0,1,3,4,6}``, as the reference module's.
+
+    The reference's quirks are kept: the first 3x3 conv has no padding
+    (the map shrinks by 2 before the stride-4 conv, so a 1024^2 input
+    gives a 255^2 dense grid, not 256^2), and the sparse output has zero
+    width. NCHW in and out."""
+
+    def __init__(self, image_embedding_size: Tuple[int, int] = (64, 64),
+                 input_image_size: Tuple[int, int] = (1024, 1024),
+                 mask_in_chans: int = 16, embed_dim: int = 256,
+                 in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.image_embedding_size = image_embedding_size
+        self.input_image_size = input_image_size
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.image_downscaling = nn.Sequential(
+            nn.Conv2d(in_chans, mask_in_chans // 4, 3),
+            LayerNorm2d(mask_in_chans // 4), nn.GELU(),
+            nn.Conv2d(mask_in_chans // 4, mask_in_chans, 4, 4),
+            LayerNorm2d(mask_in_chans), nn.GELU(),
+            nn.Conv2d(mask_in_chans, embed_dim, 1))
+
+    def forward(self, images: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """images (B, C, H, W) -> (sparse (B, 0, D), dense (B, D, h', w'))."""
+        ds, dt = self.image_downscaling, self.dtype
+        x = gelu(ds[1](conv2d(images, ds[0], dt)))
+        x = gelu(ds[4](conv2d(x, ds[3], dt)))
+        dense = conv2d(x, ds[6], dt)
+        sparse = torch.zeros((images.shape[0], 0, self.embed_dim),
+                             dtype=torch.float32, device=images.device)
+        return sparse, dense
 
 
 class PromptEncoder(nn.Module):

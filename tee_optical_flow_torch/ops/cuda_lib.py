@@ -46,8 +46,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # the C functions' argument types; each returns an int, the launch's
-# cudaGetLastError (decoded by tvl1_error_string)
+# cudaGetLastError (decoded by tvl1_error_string), but tee_device_launches,
+# which returns the library's launch count as a long long
 _SIGNATURES = {
+    "tee_device_launches": (_I,),
     "tvl1_median5x5": (_P, _P, _I, _I, _I, _P),
     "tvl1_outer_loop": (_P,) * 14 + (_I,) * 7 + (_F,) * 4 + (_P,),
     "tvl1_num_tiles": (_I, _I),
@@ -125,12 +127,23 @@ def load_library(defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        lib.tee_device_launches.restype = ctypes.c_longlong
         lib.tvl1_error_string.argtypes = [ctypes.c_int]
         lib.tvl1_error_string.restype = ctypes.c_char_p
         if not defines:
             build_info.update(seconds=seconds, ptxas=ptxas, path=str(path))
         _libs[flags] = lib
     return _libs[flags]
+
+
+def device_launch_count(lib: Optional[ctypes.CDLL] = None,
+                        reset: bool = False) -> int:
+    """The device launches that the C entries of ``lib`` (the kernel
+    library by default) issued successfully since the count was last
+    reset; ``reset`` starts it again from 0. Each C entry counts a launch
+    once the launch call returned cudaSuccess, so the count holds whatever
+    a profiler's trace loses."""
+    return int((lib or load_library()).tee_device_launches(int(reset)))
 
 
 def check_inputs(name: str, tensors) -> None:

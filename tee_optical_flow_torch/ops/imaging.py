@@ -1,4 +1,5 @@
-"""Luma and per-frame normalisation (the JAX package's ops/imaging.py).
+"""Luma, per-frame normalisation and resizing (the JAX package's
+ops/imaging.py).
 
 Replaces skimage's rgb2gray and the reference's img2uint8 on the hot path
 (reference calculate_optical_flow.py:399/586) with tensor ops batched over
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .warp import _resize
 
 # ITU-R BT.601 luma weights, matching skimage.color.rgb2gray
 _LUMA = np.asarray([0.2125, 0.7154, 0.0721], dtype=np.float32)
@@ -52,3 +55,31 @@ def img2uint8(img: torch.Tensor) -> torch.Tensor:
     shifted = img - lo
     scaled = torch.where(mx > 0, shifted / mx, shifted)
     return torch.clamp(scaled, 0.0, 1.0) * 255.0
+
+
+def normalize_imagenet(frames: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) in [0, 1] -> ImageNet-normalised."""
+    mean = torch.from_numpy(IMAGENET_MEAN).to(frames.device)
+    std = torch.from_numpy(IMAGENET_STD).to(frames.device)
+    return (frames - mean) / std
+
+
+# jax.image.resize's method names -> the port's resampling kernels
+_RESIZE_METHODS = {"bilinear": "bilinear", "linear": "bilinear",
+                   "bicubic": "cubic", "cubic": "cubic"}
+
+
+def resize_frames(frames: torch.Tensor, height: int, width: int,
+                  method: str = "bilinear") -> torch.Tensor:
+    """Batched spatial resize of (N, H, W, C) or (N, H, W) to float32, with
+    ``jax.image.resize``'s weights (antialiased when shrinking)."""
+    if method not in _RESIZE_METHODS:
+        raise ValueError(f"unsupported resize method {method!r}")
+    frames = frames.to(torch.float32)
+    kind = _RESIZE_METHODS[method]
+    if frames.ndim == 3:
+        return _resize(frames, height, width, kind)
+    n, h, w, c = frames.shape
+    planes = frames.permute(0, 3, 1, 2).reshape(n * c, h, w)
+    out = _resize(planes, height, width, kind)
+    return out.reshape(n, c, height, width).permute(0, 2, 3, 1).contiguous()

@@ -393,8 +393,9 @@ def median_filter_5x5(f: torch.Tensor) -> torch.Tensor:
     On a CUDA tensor this launches ``tvl1_median5x5`` from
     ``csrc/tvl1.cu`` (the standalone form of the on-chip median ``med5``
     of the TPU kernel ``_fused_scale_kernel``, ops/tvl1_pallas.py:248,
-    which K1 runs inside its own kernel; the levels above K1's size rule
-    call this one); on a CPU tensor it runs ``median_filter_5x5_plain``.
+    which K1 and the block loop run inside their own kernels; the TV-L1
+    gamma solver calls this one); on a CPU tensor it runs
+    ``median_filter_5x5_plain``.
     Counts its launches in ``median_filter_5x5.launches``."""
     if f.device.type == "cpu":
         return median_filter_5x5_plain(f)

@@ -14,9 +14,31 @@ def safe_makedir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
+def img2uint8(img: np.ndarray) -> np.ndarray:
+    """Min-max normalise to [0, 255] uint8 on the host (reference
+    optical_flow_utils.py:30-31): skimage's ``img_as_ubyte`` of
+    ``(img - min) / max``, clipped to [0, 1] first as img_as_ubyte
+    requires. The device form is ``ops.imaging.img2uint8``."""
+    img = np.asarray(img, dtype=np.float64)
+    mx = np.max(img)
+    shifted = img - np.min(img)
+    if mx != 0:
+        shifted = shifted / mx
+    shifted = np.clip(shifted, 0.0, 1.0)
+    return np.round(shifted * 255.0).astype(np.uint8)
+
+
 def pad_to_multiple(n: int, m: int) -> int:
     """Next multiple of ``m`` at or above ``n`` (``n`` itself for m <= 1)."""
     return int(math.ceil(n / m) * m) if m > 1 else int(n)
+
+
+def bucket_shape(shape, frame_bucket: int = 8, spatial_bucket: int = 128):
+    """Round a clip shape (N, H, W, ...) up to bucket multiples."""
+    n, h, w = shape[0], shape[1], shape[2]
+    return (pad_to_multiple(n, frame_bucket),
+            pad_to_multiple(h, spatial_bucket),
+            pad_to_multiple(w, spatial_bucket)) + tuple(shape[3:])
 
 
 def index_smallest_positive(values: Sequence[float]) -> Optional[int]:

@@ -239,6 +239,68 @@ def test_inner_block_device_launches(card, n_iters):
     assert got == 3 * (sweeps + 1)
 
 
+LIBRARY_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
+                   "block_sweep_kernel", "block_end_kernel", "coefs_kernel",
+                   "sweep_kernel", "resident_kernel")
+
+
+@pytest.mark.parametrize("call", ["outer_loop", "median", "inner_block",
+                                  "block_loop", "sor_resident", "sor_tiled",
+                                  "refused"])
+def test_device_launch_count(card, call):
+    """The kernel library's own count of the launches its C entries issued
+    (``cuda_lib.device_launch_count``) equals each call's design count: K1
+    one cooperative launch, the median one, K2 alone
+    ``tvl1_block_sweeps(n)`` sweep launches, the block loop with the stop
+    outer x (sweeps + 1), K3 one resident launch or, tiled, 3 psi rounds
+    x (1 coefficients + 3 sweep launches of S = 4 SOR iterations); a call
+    whose launch is refused counts none. A profiler trace of the same call
+    shows no more of the library's kernels (it may show fewer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+
+    lib = load_library()
+    args = _level(SHAPES["small"], card)
+    loop = dict(outer_iters=3, inner_iters=13, use_median=True, **KW)
+    if call == "refused":
+        lib = load_library({"K2_EW": 160, "K2_EH": 128})
+    calls = {
+        "outer_loop": (lambda: tk.tvl1_outer_loop(*args, epsilon=0.01,
+                                                  **loop), 1),
+        "median": (lambda: tw.median_filter_5x5(args[4]), 1),
+        "inner_block": (lambda: tk.tvl1_inner_block(*args, n_iters=13, **KW),
+                        lib.tvl1_block_sweeps(13)),
+        "block_loop": (lambda: tk.tvl1_block_loop(*args, epsilon=0.01,
+                                                  **loop),
+                       3 * (lib.tvl1_block_sweeps(13) + 1)),
+        "sor_resident": (lambda: dk.sor_sweeps(
+            *_df_level(DF_SHAPES["small"], card)[0], None, **DF_KW), 1),
+        "sor_tiled": (lambda: dk.sor_sweeps(
+            *_df_level(DF_SHAPES["above"], card)[0], None, **DF_KW), 12),
+        "refused": (lambda: pytest.raises(RuntimeError, tk.block_loop, lib,
+                                          args, epsilon=0.01, **loop), 0),
+    }
+    fn, want = calls[call]
+    counts = []
+    for traced in (False, True):
+        torch.cuda.synchronize()
+        device_launch_count(lib, reset=True)
+        if traced:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        else:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(device_launch_count(lib))
+    assert counts == [want, want], (call, counts)
+    seen = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(f"::{n}" in e.name for n in LIBRARY_KERNELS))
+    assert seen <= want, (call, seen)
+
+
 def test_block_loop_raises_on_refused_launch(card):
     """A build whose extended tile needs more shared memory than a block
     may have (160x128: 901,120 B) is refused: the call raises a

@@ -94,3 +94,51 @@ def test_training_imports_without_pil_tensorboardx():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+# the JAX package's public names that the port carries under another name
+# (its _jnp-suffixed functions: the port's are torch functions) ...
+RENAMED = {"ops": {"img2uint8_jnp": "img2uint8",
+                   "savgol_filter_jnp": "savgol_filter_torch"}}
+# ... that it does not carry yet (the mesh paths: ROADMAP queue 1, item 6)
+NOT_PORTED = {"parallel": {"make_mesh", "shard_batch", "batch_sharding",
+                           "replicated_sharding", "initialize_distributed"},
+              "exceptions": {"ShardingError"}}
+# ... and the port's own public names beyond them
+PORT_ONLY = {"flow": {"process_folder"},
+             "io": {"read_dicom_clip", "extract_metadata",
+                    "write_dicom_clip"},
+             "models": {"build_sam_vit_l", "build_sam_vit_h",
+                        "make_clip_segmentor", "preprocess_frames"},
+             "signal": {"spectral_smooth_torch"},
+             "viz": {"colormap_lut", "radlong_overlay_frames"}}
+
+
+def _public(module):
+    """``__all__``, or for a module without one (exceptions) its public
+    classes."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {n for n, v in vars(module).items()
+            if isinstance(v, type) and not n.startswith("_")
+            and v.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("name", [
+    "", "analysis", "batch", "cli", "exceptions", "flow", "io", "legacy",
+    "models", "ops", "parallel", "signal", "train", "utils", "viz"])
+def test_public_names_match_jax(name):
+    """Each subpackage exports the JAX package's names (under the port's
+    name where RENAMED says so), but for NOT_PORTED, and nothing else but
+    PORT_ONLY; every exported name resolves."""
+    import importlib
+
+    suffix = "." + name if name else ""
+    j = importlib.import_module("tee_optical_flow_tpu" + suffix)
+    t = importlib.import_module("tee_optical_flow_torch" + suffix)
+    renamed = RENAMED.get(name, {})
+    want = {renamed.get(n, n) for n in _public(j)} - NOT_PORTED.get(name,
+                                                                    set())
+    assert _public(t) == want | PORT_ONLY.get(name, set())
+    for n in _public(t):
+        assert hasattr(t, n), n

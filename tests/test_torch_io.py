@@ -1,5 +1,6 @@
 """The PyTorch port's own copies of the host modules against the JAX
-package's: the DICOM writer and reader (uncompressed and RLE), the
+package's: the DICOM writer and reader (uncompressed, RLE and
+JPEG-Lossless; tests/test_torch_dicom.py holds the rest of the decode), the
 clip-shape bucketing of core, and the synthetic echo content the smoke
 run is built from. Everything here is integer or float64 host code run
 by both sides on the same inputs, so every comparison is exact."""
@@ -64,15 +65,27 @@ def test_dicom_round_trips_between_packages(rng, tmp_path, syntax, channels):
         np.testing.assert_array_equal(_assert_same_read(path), rgb)
 
 
-def test_jpeg_frames_are_refused(rng, tmp_path):
-    path = str(tmp_path / "jpeg.dcm")
-    j_write.write_dicom_clip(path, _frames(rng, 1),
-                             transfer_syntax="jpeg_lossless")
+def test_jpeg_frames_are_refused(rng, tmp_path, monkeypatch):
+    """JPEG frames are refused only where no decoder is available: a
+    JPEG-Lossless clip, once refused outright, is read (written by either
+    package's writer, byte-equal) exactly as the JAX package reads it, and
+    raises DICOMReadError without the native decoder; the writer refuses
+    transfer syntaxes it does not know."""
+    clip = _frames(rng, 1)
+    path, j_path = str(tmp_path / "jpeg.dcm"), str(tmp_path / "j.dcm")
+    t_write.write_dicom_clip(path, clip, transfer_syntax="jpeg_lossless")
+    j_write.write_dicom_clip(j_path, clip, transfer_syntax="jpeg_lossless")
+    assert open(path, "rb").read() == open(j_path, "rb").read()
+    np.testing.assert_array_equal(_assert_same_read(path),
+                                  np.repeat(clip[..., None], 3, axis=-1))
+    with pytest.raises(ValueError, match="transfer_syntax"):
+        t_write.write_dicom_clip(path, clip, transfer_syntax="jpeg2000")
+    from tee_optical_flow_torch.io import dicom_native
+
+    monkeypatch.setattr(dicom_native, "_lib", None)
+    monkeypatch.setattr(dicom_native, "_lib_failed", True)
     with pytest.raises(DICOMReadError, match="JPEG"):
         t_dicom.read_dicom_clip(path)
-    with pytest.raises(ValueError, match="transfer_syntax"):
-        t_write.write_dicom_clip(path, _frames(rng, 1),
-                                 transfer_syntax="jpeg_lossless")
 
 
 def test_bucketing_matches_jax(rng):

@@ -160,3 +160,38 @@ def test_warp_tiled2d_matches_jax(rng, kernel):
                                          kernel=kernel)
         for a, b in zip(ref, got):
             _close(a, b, ULPS_255)
+
+
+@pytest.mark.parametrize("method", ["bilinear", "linear", "bicubic",
+                                    "cubic"])
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_frames_and_normalize_match_jax(rng, method, channels):
+    """ops.resize_frames (a shrink on one axis, a stretch on the other, a
+    single-channel and an RGB stack) against jax.image.resize's weights,
+    and normalize_imagenet, to float32 rounding of values up to 255."""
+    shape = (2, 21, 18) + ((channels,) if channels else ())
+    frames = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    _close(j_img.resize_frames(frames, 13, 29, method),
+           t_img.resize_frames(_t(frames), 13, 29, method), ULPS_255)
+    x = rng.uniform(size=(2, 5, 6, 3)).astype(np.float32)
+    _close(j_img.normalize_imagenet(x), t_img.normalize_imagenet(_t(x)),
+           1e-6)
+    with pytest.raises(ValueError, match="method"):
+        t_img.resize_frames(_t(frames), 13, 29, "lanczos3")
+
+
+def test_host_helpers_match_jax(rng):
+    """utils.img2uint8 (the host form, uint8) and utils.bucket_shape, equal
+    to the JAX package's."""
+    from tee_optical_flow_torch import utils as t_utils
+    from tee_optical_flow_tpu import utils as j_utils
+
+    img = rng.normal(size=(7, 9)) * 40 + 10
+    np.testing.assert_array_equal(t_utils.img2uint8(img),
+                                  j_utils.img2uint8(img))
+    np.testing.assert_array_equal(t_utils.img2uint8(np.zeros((3, 3))),
+                                  j_utils.img2uint8(np.zeros((3, 3))))
+    for shape in ((33, 480, 640, 3), (7, 100, 129)):
+        assert t_utils.bucket_shape(shape) == j_utils.bucket_shape(shape)
+        assert t_utils.bucket_shape(shape, 4, 32) == \
+            j_utils.bucket_shape(shape, 4, 32)

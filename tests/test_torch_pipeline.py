@@ -164,22 +164,36 @@ def test_process_folder_isolates_failures(runs, tmp_path):
 
 
 def test_unported_paths_are_refused(runs, tmp_path):
-    """What the pipeline still lacks raises before anything is written:
-    TV-L1 gamma > 0. WASE and waveforms are ported
-    (tests/test_torch_cohort.py); WASE in otsu mode stays a configuration
-    error, as in the JAX package."""
+    """WASE in otsu mode stays a configuration error, as in the JAX
+    package, and raises before anything is written. TV-L1 gamma > 0, once
+    refused here, is ported: the same DICOM with tvl1_gamma=0.1 through
+    both packages writes the same masks and, within the bounds of
+    test_port_matches_jax_run, the same flow."""
+    import h5py
+
     from tee_optical_flow_torch.exceptions import ConfigurationError
 
     dcm, _, _ = runs
     out = str(tmp_path / "x.hdf5")
-    with pytest.raises(NotImplementedError, match="gamma"):
-        t_pipe.process_video(dcm, out, None, mode="otsu", no_saliency=True,
-                             config=TorchConfig(tvl1_gamma=0.1, **REDUCED),
-                             device="cpu")
     with pytest.raises(ConfigurationError, match="otsu"):
         t_pipe.process_video(dcm, out, None, mode="otsu", bkgd_comp="WASE",
                              config=TorchConfig(**REDUCED), device="cpu")
     assert not os.path.exists(out)
+
+    kw = dict(verbose=False, mode="otsu", no_saliency=True, OF_algo="TVL1",
+              include_waveforms=False)
+    out_t, out_j = str(tmp_path / "t.hdf5"), str(tmp_path / "j.hdf5")
+    t_pipe.process_video(dcm, out_t, None, device="cpu",
+                         config=TorchConfig(tvl1_gamma=0.1, **REDUCED), **kw)
+    j_pipe.process_video(dcm, out_j, None,
+                         config=JaxConfig(tvl1_gamma=0.1, **REDUCED), **kw)
+    with h5py.File(out_t, "r") as ft, h5py.File(out_j, "r") as fj:
+        np.testing.assert_array_equal(ft["otsu"][()], fj["otsu"][()])
+        a = ft["flow"][()].astype(np.float32)
+        b = fj["flow"][()].astype(np.float32)
+    epe = np.hypot(a[..., 0] - b[..., 0], a[..., 1] - b[..., 1])
+    assert epe.mean() < 0.01 and epe.max() < 0.05, (epe.mean(), epe.max())
+    assert np.abs(b).max() > 0.5
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(runs, tmp_path):
