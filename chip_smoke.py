@@ -75,7 +75,19 @@ arguments the TV-L1 and the DeepFlow path handed them):
     5x5 medians launch the standalone CUDA median, held bit-equal on the
     path's own arguments; the JAX package's brightness-ramp case; the
     legacy shim's statistics against the CPU; PromptAutoEncoder at 1024
-    card against CPU.
+    card against CPU;
+  * frame-axis data parallelism (phase_mesh): the main clip's pairs
+    through flow/pipeline.compute_clip_flow_sharded on a 1- and a
+    2-entry mesh of the one card (TV-L1; DeepFlow on 2), bit-equal to the
+    unsharded solve, the launches of every shard counted, the host
+    synchronisations of a 2-shard solve listed; the vit_t segmentor on
+    the 2-entry mesh against the unsharded one; load_segmentor(
+    data_axis=2) refused with ShardingError on one card;
+  * the baseline network zoo (phase_baselines): every get_network entry
+    and SmallDecoder at default widths, batch 4 at 256 (UNet also at
+    1024), card against CPU, ms per batch, parameters, peak memory; one
+    UNet AdamW step at 1024 in train mode; one WGAN-GP discriminator
+    update through train/gan.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, and the device launches per
@@ -84,7 +96,10 @@ profiler trace may only undercount). Imports nothing of JAX.
 ``k3_tuning()`` and ``k2_tuning()`` (run on their own) time K3 and the
 block loop under builds with other tiles and steps per launch;
 ``vitdet_check()`` runs phase_vitdet alone, ``compressed_gamma_check()``
-phase_compressed_gamma (after phase_cohort, for its dataset). Exits non-zero,
+phase_compressed_gamma (after phase_cohort, for its dataset),
+``mesh_check()`` phase_mesh and ``baselines_check()`` phase_baselines;
+``batch_dependence()`` and ``unet_algorithms()`` print what lies behind
+two of their findings. Exits non-zero,
 with no result line, when there is no CUDA device or a phase fails.
 
 Output: progress lines, each after the set-up headed by the card's name
@@ -259,6 +274,34 @@ GAMMA_EPS0_FRAMES = 4
 GAMMA_RAMP_BOUND, GAMMA_RAMP_PLAIN_MIN = 0.1, 0.5
 DICOM_READS = 3
 PAE_SIZE, PAE_FRAMES, PAE_REL = 1024, 4, 1e-4
+
+# frame-axis data parallelism (phase_mesh): the main clip's 32 pairs
+# through flow/pipeline.compute_clip_flow_sharded under the production
+# config, TV-L1 on a mesh of MESH_SHARDS entries of the one card (2:
+# ["cuda:0", "cuda:0"], two shards one after the other), DeepFlow on the
+# 2-entry mesh: each pair's flow bit-equal to the unsharded
+# tvl1_flow_pairs / deepflow_pairs on the card, every shard making the
+# path's launches. The vit_t segmentor (SAM_SEED's weights, SAM_CLASSES,
+# 1024) on the 2-entry mesh against the unsharded one at micro-batch
+# SAM_MICRO_BATCH: in bfloat16 at least MESH_SEG_AGREE of the labels
+# equal (each shard's batch of 2 may pick other cuDNN algorithms than a
+# batch of 4), in float32 the logits within MESH_F32_REL of max-abs
+MESH_SHARDS = (1, 2)
+MESH_SEG_AGREE, MESH_F32_REL = 0.99, 1e-5
+
+# the baseline network zoo (phase_baselines): every get_network entry
+# and SmallDecoder at its default widths (get_network's num_classes 2),
+# float32 with TF32 off, a batch of BASELINE_BATCH at BASELINE_SIZE (the
+# trainer's out_size; the implicit critics on a 1-channel segmentation, a
+# 3-channel image and a label), UNet also at BASELINE_UNET_SIZE (the
+# trainer's image_size; its CPU check on one frame): the card's forward
+# within BASELINE_REL of the max-abs of the same module's CPU forward.
+# One AdamW step of UNet at BASELINE_UNET_SIZE with its train-mode batch
+# statistics committed (BASELINE_TRAIN_STEPS timed after one), and one
+# WGAN-GP discriminator update through train/gan on the Discriminator,
+# its loss within BASELINE_REL of the CPU's
+BASELINE_SEED, BASELINE_BATCH, BASELINE_SIZE = 0, 4, 256
+BASELINE_UNET_SIZE, BASELINE_REL, BASELINE_TRAIN_STEPS = 1024, 1e-4, 3
 
 # the TV-L1 path: 5 levels x 5 warps, one K1 call each; K1 is held against
 # its plain version on the path's own arguments at the finest and the
@@ -887,11 +930,19 @@ def check_schema(saved, n, h, w, mode="otsu"):
 def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
     """check_schema, and the flow against the analytic motion on the
     wall, within bounds = (median, p95) px."""
-    from tee_optical_flow_torch.synthetic import echo_sector_masks
-
     check_schema(saved, n, h, w, mode)
     flow = saved["flow"]
-    px = flow[:-1].astype(np.float32) / (SPACING_CM * FPS)
+    wall_epe(flow[:-1].astype(np.float32) / (SPACING_CM * FPS), truth,
+             bounds)
+
+
+def wall_epe(px, truth, bounds):
+    """The (P, H, W, 2) flow in px against the analytic motion on the
+    wall: median and p95 end-point error within bounds = (median, p95)
+    px."""
+    from tee_optical_flow_torch.synthetic import echo_sector_masks
+
+    h, w = px.shape[1:3]
     wall = echo_sector_masks(h, w)["wall"].copy()
     wall[:8] = wall[-8:] = False
     wall[:, :8] = wall[:, -8:] = False
@@ -903,6 +954,7 @@ def check_outputs(saved, n, h, w, truth, bounds, mode="otsu"):
         f"true motion {motion:.3f} px): EPE median {med:.4f} px (bound "
         f"{bounds[0]}), p95 {p95:.4f} px (bound {bounds[1]})")
     assert med < bounds[0] and p95 < bounds[1], (med, p95)
+    return med, p95
 
 
 def profile_clip(run_clip):
@@ -3390,6 +3442,514 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
     return out, median
 
 
+def host_syncs(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"): the port's
+    source lines (the innermost tee_optical_flow_torch frame) at which
+    torch reported a synchronising CUDA operation, with their counts."""
+    import traceback
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if "tee_optical_flow_torch" in f.filename]
+        key = (f"{os.path.relpath(ours[-1].filename, root)}:"
+               f"{ours[-1].lineno}" if ours else f"{filename}:{lineno}")
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def phase_mesh(clip, truth, workdir):
+    """Frame-axis data parallelism on the one card (MESH_*): the sharded
+    clip flow (TV-L1 on 1 and 2 entries, DeepFlow on 2) bit-equal to the
+    unsharded solve, its launches per shard from the wrappers' counts and
+    the kernel library's, the wall EPE under the path's bounds, seconds
+    per shard and per solve, and the host synchronisations of a 2-shard
+    solve (each holds back the start of the next shard); the sharded vit_t
+    segmentor against the unsharded one; load_segmentor(data_axis=2)
+    refused on one card."""
+    import torch
+
+    from tee_optical_flow_torch.cli.process import load_segmentor
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.exceptions import ShardingError
+    from tee_optical_flow_torch.flow import pipeline as tp
+    from tee_optical_flow_torch.models import (
+        build_sam_vit_t, make_clip_segmentor, preprocess_frames,
+    )
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+    from tee_optical_flow_torch.ops.deepflow import deepflow_config_kwargs
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
+    from tee_optical_flow_torch.ops.tvl1 import tvl1_config_kwargs
+    from tee_optical_flow_torch.parallel import make_mesh
+
+    cfg = default_optical_flow_config()
+    n, h, w = clip.shape
+    images = img2uint8(gray_from_clip(torch.from_numpy(clip).cuda()))
+    out = {}
+    for algo, name, kw, counter, shard_counts in (
+            ("TVL1", "tvl1_flow_pairs", tvl1_config_kwargs(cfg),
+             "tvl1_outer_loop", MESH_SHARDS),
+            ("deepflow", "deepflow_pairs", deepflow_config_kwargs(cfg),
+             "sor_sweeps", (2,))):
+        path = PATHS[algo]
+        solve = getattr(tp, name)
+        for _ in range(2):  # the second solve is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = solve(images[:-1], images[1:], **kw)
+            torch.cuda.synchronize()
+        rec = {"unsharded_s": time.perf_counter() - t0}
+        for shards in shard_counts:
+            mesh = make_mesh(devices=["cuda:0"] * shards)
+            shard_s = []
+
+            def timed(a, b, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = solve(a, b, **k)
+                torch.cuda.synchronize()
+                shard_s.append(time.perf_counter() - t)
+                return r
+
+            for run in range(2):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if run == 0:
+                    with substituted(tp, name, timed):
+                        flow = tp.compute_clip_flow_sharded(images, mesh,
+                                                            algo, cfg)
+                else:
+                    flow = tp.compute_clip_flow_sharded(images, mesh, algo,
+                                                        cfg)
+                torch.cuda.synchronize()
+                solve_s = time.perf_counter() - t0
+                counts, dev = read_counts(), device_launch_count()
+                want = dict(_NONE, **{counter: shards * path["counts"][
+                    counter]})
+                assert counts == want, (algo, shards, counts)
+                assert dev == shards * path["device_launches"], (algo, dev)
+            assert flow.shape == ref.shape == (n - 1, h, w, 2)
+            err = float((flow - ref).abs().max())
+            log(f"mesh {algo}, {shards} shard(s) of cuda:0: "
+                f"compute_clip_flow_sharded {solve_s:.3f} s (first, with a "
+                f"synchronise around each shard: shards "
+                + ", ".join(f"{t:.3f}" for t in shard_s)
+                + f" s), unsharded {rec['unsharded_s']:.3f} s; launches "
+                f"{counts[counter]} ({path['counts'][counter]} per shard), "
+                f"{dev} device launches; max|sharded - unsharded| = {err}")
+            assert torch.equal(flow, ref), (algo, shards, err)
+            med, p95 = wall_epe(flow.cpu().numpy(), truth, path["bounds"])
+            rec[f"shards_{shards}"] = dict(
+                solve_s=solve_s, shard_s=shard_s, launches=counts[counter],
+                device_launches=dev, max_abs_err=err, epe_median=med,
+                epe_p95=p95)
+        mesh2 = make_mesh(devices=["cuda:0"] * 2)
+        rec["host_syncs"] = host_syncs(lambda: tp.compute_clip_flow_sharded(
+            images, mesh2, algo, cfg))
+        log(f"mesh {algo}: host synchronisations of a 2-shard solve "
+            f"(source line: count): {json.dumps(rec['host_syncs'])}")
+        out[algo] = rec
+        del ref, flow
+
+    # the segmentor: bfloat16 labels and float32 logits, unsharded and on
+    # the 2-entry mesh (one replica: the entry repeats the model's card)
+    gray = torch.from_numpy(clip).cuda()
+    mesh2 = make_mesh(devices=["cuda:0"] * 2)
+    seg = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_sam_vit_t(num_classes=SAM_CLASSES, seed=SAM_SEED,
+                                dtype=dtype)
+        pair = [make_clip_segmentor(model, micro_batch=SAM_MICRO_BATCH,
+                                    mesh=m) for m in (None, mesh2)]
+        assert pair[0].resident_weight_bytes == pair[1].resident_weight_bytes
+        tag = str(dtype).split(".")[-1]
+        if dtype == torch.bfloat16:
+            labels, secs = [], []
+            for sg in pair:
+                sg.labels_device(gray[:SAM_MICRO_BATCH], (h, w))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                labels.append(sg.labels_device(gray, (h, w)))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            agree = float((labels[0] == labels[1]).float().mean())
+            seg[tag] = dict(agree=agree, unsharded_s=secs[0],
+                            sharded_s=secs[1])
+            log(f"mesh segmentor {tag}: {n} frames {secs[0]:.3f} s "
+                f"unsharded, {secs[1]:.3f} s on 2 entries; labels equal "
+                f"{100 * agree:.2f}% (bound {100 * MESH_SEG_AGREE}%)")
+            assert agree >= MESH_SEG_AGREE, agree
+        else:
+            with torch.no_grad():
+                x = preprocess_frames(gray[:SAM_MICRO_BATCH],
+                                      model.image_size)
+                whole = pair[0].forward(x)[0]
+                half = SAM_MICRO_BATCH // 2
+                halves = torch.cat([pair[1].forward(x[:half])[0],
+                                    pair[1].forward(x[half:])[0]])
+            rel = float((whole - halves).abs().max() / whole.abs().max())
+            seg[tag] = dict(logits_rel=rel)
+            log(f"mesh segmentor {tag}: logits of a micro-batch in two "
+                f"halves against whole: {rel:.3g} of max-abs (bound "
+                f"{MESH_F32_REL})")
+            assert rel <= MESH_F32_REL, rel
+        del model, pair
+    out["segmentor"] = seg
+
+    empty = os.path.join(workdir, "no_checkpoint")
+    os.makedirs(empty, exist_ok=True)
+    if torch.cuda.device_count() == 1:
+        try:
+            load_segmentor(empty, data_axis=2)
+        except ShardingError as exc:
+            out["data_axis_2"] = str(exc)
+        else:
+            raise AssertionError("load_segmentor(data_axis=2) on one card")
+        assert out["data_axis_2"] == "mesh 2x1 != 1 devices", out
+        log(f"load_segmentor(data_axis=2) on one card: ShardingError "
+            f"{out['data_axis_2']!r}")
+    return out
+
+
+def _baseline_cases():
+    """(name, constructor, inputs, frames held on the CPU) of
+    phase_baselines, seeded."""
+    import torch
+
+    from tee_optical_flow_torch.models import baselines as tb
+
+    rng = np.random.default_rng(BASELINE_SEED)
+    b, s = BASELINE_BATCH, BASELINE_SIZE
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    img = normal(b, 3, s, s)
+    critic = [torch.from_numpy(rng.uniform(size=(b, 1, s, s)).astype(
+        np.float32)), torch.from_numpy(rng.integers(0, 2, b).astype(
+            np.float32)), img]
+    cases = []
+    for name in ("unet", "transunet", "munet", "goinnet", "vit", "resnet",
+                 "seresnet", "vgg", "squeezenet", "efficientnet", "vae",
+                 "discriminator", "tag", "implicitnet",
+                 "implicitefficientnet"):
+        kw = dict(image_size=s) if name in ("vit", "vae") else {}
+        cases.append((name, lambda name=name, kw=kw: tb.get_network(
+            name, **kw), critic if name.startswith("implicit") else [img],
+            b))
+    cases.append(("smalldecoder", tb.SmallDecoder,
+                  [normal(b, 256, s // 8, s // 8)], b))
+    u = BASELINE_UNET_SIZE
+    cases.append((f"unet {u}", tb.UNet, [normal(b, 3, u, u)], 1))
+    return cases
+
+
+def phase_baselines():
+    """The baseline zoo on the card (BASELINE_*): each network's forward
+    against the same module's CPU forward, its CUDA-event ms per batch,
+    parameters and peak memory; one UNet AdamW step at 1024 with its
+    batch statistics committed; one WGAN-GP update of the
+    Discriminator, its loss against the CPU's."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from tee_optical_flow_torch.models import baselines as tb
+    from tee_optical_flow_torch.models.common import commit_batch_stats
+    from tee_optical_flow_torch.train import gan
+
+    assert not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    out = {}
+    for name, build, inputs, held in _baseline_cases():
+        torch.manual_seed(BASELINE_SEED)
+        cpu = build().eval()
+        card = copy.deepcopy(cpu).cuda()
+        xs = [t.cuda() for t in inputs]
+
+        @torch.no_grad()
+        def forward(net=card, xs=xs):
+            return net(*xs)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = forward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = cuda_ms(forward, 3)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = cpu(*[t[:held] for t in inputs])
+        cpu_s = time.perf_counter() - t0
+        rel = 0.0
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            g = g[:held].float().cpu()
+            assert g.shape == r.shape and bool(torch.isfinite(g).all())
+            rel = max(rel, float((g - r).abs().max() / r.abs().max()))
+        params = sum(p.numel() for p in cpu.parameters())
+        out[name] = dict(ms=ms, params=params, peak_gb=peak, rel=rel,
+                         cpu_s=cpu_s)
+        log(f"baseline {name}: {ms:.3f} ms per batch of "
+            f"{tuple(inputs[0].shape)}, {params} parameters, peak "
+            f"{peak:.2f} GB; card vs CPU ({held} frame(s), {cpu_s:.1f} s on "
+            f"the CPU) {rel:.3g} of max-abs (bound {BASELINE_REL})")
+        assert rel <= BASELINE_REL, (name, rel)
+        del cpu, card, xs, got, ref
+
+    # one AdamW step of UNet at 1024 in train mode
+    u, b = BASELINE_UNET_SIZE, BASELINE_BATCH
+    torch.manual_seed(BASELINE_SEED)
+    net = tb.UNet().cuda()
+    opt = torch.optim.AdamW(net.parameters(), lr=1e-4)
+    rng = np.random.default_rng(BASELINE_SEED)
+    x = torch.from_numpy(rng.normal(size=(b, 3, u, u)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 2, (b, u, u))).cuda()
+    running = net.down0.bn0.running_var.clone()
+    moved = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(net(x, train=True), y)
+        loss.backward()
+        opt.step()
+        moved.append(commit_batch_stats(net))
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step())
+    events = [_event_ms(step) for _ in range(BASELINE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = float(np.median([s.elapsed_time(e) for s, e in events]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules())
+    assert np.isfinite(first) and moved == [n_bn] * len(moved), moved
+    assert not torch.equal(running, net.down0.bn0.running_var)
+    out["unet_train_step"] = dict(ms=step_ms, peak_gb=peak, loss=first,
+                                  batch_norms=n_bn)
+    log(f"baseline UNet AdamW step at {b}x3x{u}x{u}: {step_ms:.3f} ms "
+        f"(median of {BASELINE_TRAIN_STEPS}), peak {peak:.2f} GB, first "
+        f"loss {first:.4f}, {n_bn} batch norms committed per step")
+    del net, opt, x, y
+
+    # one WGAN-GP discriminator update (double backward through the
+    # convolutions), its loss against the CPU's on the same weights
+    s = BASELINE_SIZE
+    torch.manual_seed(BASELINE_SEED)
+    cpu = tb.Discriminator()
+    card = copy.deepcopy(cpu).cuda()
+    real, fake = (torch.from_numpy(rng.normal(size=(b, 3, s, s)).astype(
+        np.float32)) for _ in range(2))
+    eps = torch.from_numpy(rng.uniform(size=(b, 1, 1, 1)).astype(
+        np.float32))
+    ref = float(gan.discriminator_loss(cpu, real, fake, eps=eps)[0].detach())
+    opt = torch.optim.AdamW(card.parameters(), lr=1e-4)
+    before = card.head.weight.detach().clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, (d_real, d_fake, gp) = gan.update_d(
+        card, opt, real.cuda(), fake.cuda(), eps=eps.cuda())
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    rel = abs(float(loss) - ref) / abs(ref)
+    out["wgan_gp_update"] = dict(loss=float(loss), cpu_loss=ref, rel=rel,
+                                 gp=float(gp), s=update_s)
+    log(f"baseline WGAN-GP update of the Discriminator at {b}x3x{s}x{s}: "
+        f"loss {float(loss):.6f} (CPU {ref:.6f}, {rel:.3g} relative, bound "
+        f"{BASELINE_REL}), gradient penalty {float(gp):.6f}, {update_s:.3f} "
+        f"s with the first call's set-up")
+    assert rel <= BASELINE_REL and not torch.equal(before, card.head.weight)
+    return out
+
+
+def mesh_check() -> int:
+    """phase_mesh alone on the 480x640 clip, after the kernels' build: a
+    shorter call than the whole smoke, for work on this phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        t0 = time.perf_counter()
+        out = phase_mesh(clip, truth, workdir)
+        log(f"mesh ({time.perf_counter() - t0:.1f} s): " + json.dumps(out))
+    return 0
+
+
+def baselines_check() -> int:
+    """phase_baselines alone: a shorter call than the whole smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    t0 = time.perf_counter()
+    out = phase_baselines()
+    log(f"baselines ({time.perf_counter() - t0:.1f} s): " + json.dumps(out))
+    return 0
+
+
+def batch_dependence() -> int:
+    """Why a batched resize is not a per-pair one on the card: the
+    DeepFlow path's coarsest cubic upsample (30x40 -> 60x80, the
+    production pyramid of the 480x640 clip) as one batched product over
+    32 images and over their first 16, the rows compared, beside
+    ops/warp._resize's grouped products; deepflow_pairs over the clip's
+    32 pairs against its first 16; and the TV-L1 and DeepFlow solves of
+    the path's 39 pairs with the grouped products and with one batched
+    product, in turns (run on its own; prints only)."""
+    import torch
+
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.ops import warp as tw
+    from tee_optical_flow_torch.ops.deepflow import (
+        deepflow_config_kwargs, deepflow_pairs,
+    )
+    from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
+    from tee_optical_flow_torch.ops.tvl1 import (
+        tvl1_config_kwargs, tvl1_flow_pairs,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    clip, _ = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    images = img2uint8(gray_from_clip(torch.from_numpy(clip).cuda()))
+    shapes = tw.pyramid_shapes(CLIP_H, CLIP_W, 5, 0.5)
+    coarse = tw.build_pyramid(images[:-1].contiguous(), shapes)[-1]
+    (h, w), (nh, nw) = shapes[-1], shapes[-2]
+    ww = torch.from_numpy(tw._resize_weights(w, nw, "cubic")).cuda()
+    wh = torch.from_numpy(tw._resize_weights(h, nh, "cubic")).cuda()
+
+    def batched(x):
+        return torch.matmul(wh.t(), torch.matmul(x, ww))
+
+    half = coarse.shape[0] // 2
+    for name, fn in (("one batched product", batched),
+                     (f"groups of {tw.RESIZE_GROUP} (ops/warp._resize)",
+                      lambda x: tw.resize_cubic(x, nh, nw))):
+        full = fn(coarse)
+        d = max(float((full[lo:hi] - fn(coarse[lo:hi])).abs().max())
+                for lo, hi in ((0, half), (3, half + 3)))
+        log(f"cubic resize {h}x{w} -> {nh}x{nw}, {name}: max|rows of "
+            f"{coarse.shape[0]} - the same {half} alone (from 0 and from "
+            f"3)| = {d}")
+    cfg = default_optical_flow_config()
+    kw = deepflow_config_kwargs(cfg)
+    whole = deepflow_pairs(images[:-1], images[1:], **kw)
+    part = deepflow_pairs(images[:half], images[1:half + 1], **kw)
+    log(f"deepflow_pairs: max|pairs of {whole.shape[0]} - {half} alone| = "
+        f"{float((whole[:half] - part).abs().max())} px")
+
+    # what the grouped products cost: the path's solves (39 pairs) with
+    # them and with one batched product per axis, in turns
+    def one_product(img, h, w, method):
+        out = img
+        if img.shape[2] != w:
+            out = torch.matmul(out, torch.from_numpy(tw._resize_weights(
+                img.shape[2], w, method)).to(img.device))
+        if img.shape[1] != h:
+            out = torch.matmul(torch.from_numpy(tw._resize_weights(
+                img.shape[1], h, method)).to(img.device).t(), out)
+        return out.contiguous()
+
+    frames = np.concatenate([clip, np.repeat(clip[-1:], 7, axis=0)])
+    pairs = img2uint8(gray_from_clip(torch.from_numpy(frames).cuda()))
+    for name, solve, skw in (
+            ("tvl1_flow_pairs", tvl1_flow_pairs, tvl1_config_kwargs(cfg)),
+            ("deepflow_pairs", deepflow_pairs, kw)):
+        times = {"grouped": [], "batched": []}
+        solve(pairs[:-1], pairs[1:], **skw)
+        for way in ("batched", "grouped", "grouped", "batched"):
+            with (substituted(tw, "_resize", one_product)
+                  if way == "batched" else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve(pairs[:-1], pairs[1:], **skw)
+                torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t0)
+        log(f"{name} over {pairs.shape[0] - 1} pairs: resizes in groups "
+            + ", ".join(f"{t:.3f}" for t in times["grouped"])
+            + " s; one batched product " + ", ".join(
+                f"{t:.3f}" for t in times["batched"]) + " s")
+    return 0
+
+
+def unet_algorithms() -> int:
+    """UNet (default widths, batch BASELINE_BATCH, float32, TF32 off) at
+    256, 512 and 1024 on the card: ms per forward (CUDA events), peak
+    memory, and the device kernels a 256 forward spends its time in
+    (torch.profiler), with cuDNN's heuristics and with cudnn.benchmark
+    (run on its own; prints only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tee_optical_flow_torch.models import baselines as tb
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    for benchmark in (False, True):
+        torch.backends.cudnn.benchmark = benchmark
+        for size in (256, 512, 1024):
+            torch.manual_seed(BASELINE_SEED)
+            net = tb.UNet().cuda().eval()
+            x = torch.randn(BASELINE_BATCH, 3, size, size, device="cuda")
+            with torch.no_grad():
+                torch.cuda.reset_peak_memory_stats()
+                net(x)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                ms = cuda_ms(lambda: net(x), 3)
+                log(f"UNet {size}, cudnn.benchmark={benchmark}: {ms:.3f} ms "
+                    f"per batch of {BASELINE_BATCH}, peak {peak:.2f} GB")
+                if size == 256:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        net(x)
+                        torch.cuda.synchronize()
+                    by = {}
+                    for e in prof.events():
+                        if e.device_type == torch.autograd.DeviceType.CUDA:
+                            c, t = by.get(e.name, (0, 0.0))
+                            by[e.name] = (c + 1,
+                                          t + e.time_range.elapsed_us() / 1e3)
+                    for n, (c, t) in sorted(by.items(),
+                                            key=lambda kv: -kv[1][1])[:4]:
+                        log(f"  {t:9.2f} ms {c:7d}x {n[:90]}")
+    torch.backends.cudnn.benchmark = False
+    return 0
+
+
 def compressed_gamma_check() -> int:
     """phase_cohort (for its dataset) and phase_compressed_gamma alone on
     the 480x640 clip, after the kernels' build: a shorter call than the
@@ -3489,11 +4049,18 @@ def main() -> int:
     k2 = phase_k2(k2_args, k2_calls)
     del k1_args, k3_args, k2_args
     phase_saliency(clip)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        t0 = time.perf_counter()
+        mesh = phase_mesh(clip, truth, workdir)
+        mesh_s = time.perf_counter() - t0
     sam = phase_sam(clip)
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
         train = phase_train(clip, workdir, has_h5py)
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
         vitdet = phase_vitdet(clip, workdir, has_h5py)
+    t0 = time.perf_counter()
+    baselines = phase_baselines()
+    baselines_s = time.perf_counter() - t0
     main_counts = results["TVL1"][0]
     df_counts = results["deepflow"][0]
     k2_counts = results["TVL1 600x800"][0]
@@ -3502,7 +4069,10 @@ def main() -> int:
     records["sor_sweeps"] = dict(
         k3[finest], levels={k: v for k, v in k3.items() if k != finest},
         clip_device_ms=sum(t for _, t in df_device.values()),
-        clip_device_launches=sum(c for c, _ in df_device.values()))
+        clip_device_launches=sum(c for c, _ in df_device.values()),
+        mesh_path_launches={
+            k: v["launches"] for k, v in mesh["deepflow"].items()
+            if k.startswith("shards_")})
     log(f"K3 per DeepFlow clip: {records['sor_sweeps']['clip_device_ms']:.2f}"
         f" ms of device time over "
         f"{records['sor_sweeps']['clip_device_launches']} device launches "
@@ -3526,7 +4096,9 @@ def main() -> int:
         sam_path_launches=results["SAM"][0]["tvl1_outer_loop"],
         config4_path_launches=cohort["launches"],
         config5_path_launches=config5["launches"],
-        vitb_path_launches=vitdet.pop("launches"))
+        vitb_path_launches=vitdet.pop("launches"),
+        mesh_path_launches={k: v["launches"] for k, v in mesh["TVL1"].items()
+                            if k.startswith("shards_")})
     k2_path = f"K2: otsu+TVL1 {K2_FRAMES}x{K2_H}x{K2_W}"
     kernels = []
     for name, source, replaces, launches, path in (
@@ -3563,7 +4135,7 @@ def main() -> int:
                                    "config4_path_launches",
                                    "config5_path_launches",
                                    "vitb_path_launches", "k2_shape",
-                                   "k2_path_launches")
+                                   "k2_path_launches", "mesh_path_launches")
                if k in rec},
         })
     for name, (_, clip_s, solver_s, _, _) in results.items():
@@ -3581,6 +4153,8 @@ def main() -> int:
     log("training: " + json.dumps(train))
     log("ViT-Det: " + json.dumps(vitdet))
     log("compressed DICOM and gamma: " + json.dumps(compressed))
+    log(f"mesh ({mesh_s:.1f} s): " + json.dumps(mesh))
+    log(f"baselines ({baselines_s:.1f} s): " + json.dumps(baselines))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

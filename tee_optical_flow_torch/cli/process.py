@@ -110,10 +110,15 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
     serves it with int8 weights (``make_clip_segmentor(weights_int8=
     True)``, models/quantize.py).
 
+    ``data_axis > 1`` serves the frames data-parallel over a
+    ``make_mesh(data_axis=data_axis, model_axis=1)`` mesh of the cards
+    (of the one CPU device with ``device="cpu"``), in micro-batches of 4
+    rounded up to a multiple of ``data_axis``; fewer devices than
+    ``data_axis`` raise ShardingError, as the JAX package does.
+
     Refused with NotImplementedError: an orbax ``checkpoint_best/``
     snapshot of the JAX trainer with no ``.pth`` (orbax needs JAX; the
-    port's trainer writes torch files) and ``data_axis > 1`` (ROADMAP.md,
-    queue 1, item 6)."""
+    port's trainer writes torch files)."""
     import torch
 
     from ..exceptions import ConfigurationError
@@ -135,11 +140,14 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
         raise ConfigurationError(
             f"model_dtype must be one of float32/bfloat16/int8, "
             f"got {model_dtype!r}")
+    mesh = None
     if data_axis and data_axis > 1:
-        raise NotImplementedError(
-            f"data_axis={data_axis} (the segmentor's frame-axis data "
-            "parallelism over several cards) is not ported yet: "
-            "ROADMAP.md, queue 1, item 6")
+        from ..core import resolve_device
+        from ..parallel.mesh import make_mesh
+
+        cpu = resolve_device(device).type == "cpu"
+        mesh = make_mesh(data_axis=data_axis, model_axis=1,
+                         devices=["cpu"] if cpu else None)
     torch_ckpt = os.path.join(checkpoint_dir, "checkpoint_best.pth")
     if not os.path.exists(torch_ckpt):
         if os.path.isdir(os.path.join(checkpoint_dir, "checkpoint_best")):
@@ -159,9 +167,12 @@ def load_segmentor(checkpoint_dir: str, arch: str = "vit_t",
                                      checkpoint=torch_ckpt, dtype=dtype,
                                      device=device,
                                      **model_kwargs_of_run(run_args))
+    # a sharded segmentor needs a micro-batch divisible by the data axis
+    kw = {} if mesh is None else dict(mesh=mesh)
+    mb = 4 if mesh is None else -(-4 // data_axis) * data_axis
     if model_dtype == "int8":
-        return make_clip_segmentor(model, micro_batch=4, weights_int8=True)
-    return make_clip_segmentor(model, micro_batch=4)
+        kw["weights_int8"] = True
+    return make_clip_segmentor(model, micro_batch=mb, **kw)
 
 
 def main(argv=None, *, _save_fn=None) -> int:

@@ -280,8 +280,9 @@ class DeviceConfig(_JsonMixin):
     """Device and dtype policy of a run."""
 
     # frame-axis data parallelism of the segmentor over data_axis cards
-    # (not ported yet: cli/process.load_segmentor refuses data_axis > 1);
-    # None -> one card
+    # (cli/process.load_segmentor: a parallel/mesh.make_mesh mesh of the
+    # cards); None -> one card. model_axis > 1 is for the trainer, whose
+    # several-card runs are not ported yet
     data_axis: Optional[int] = None
     model_axis: int = 1
     # compute_dtype is the flow solvers' precision (float32 only:

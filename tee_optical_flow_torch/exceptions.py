@@ -34,3 +34,7 @@ class ConfigurationError(OpticalFlowError):
 
 class CheckpointError(OpticalFlowError):
     """Raised when a model checkpoint cannot be loaded or converted."""
+
+
+class ShardingError(OpticalFlowError):
+    """Raised when a mesh/sharding specification is invalid."""

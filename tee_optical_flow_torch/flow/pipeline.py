@@ -23,6 +23,7 @@ Parity with reference process_video (calculate_optical_flow.py:478-625):
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -41,11 +42,13 @@ from ..exceptions import ConfigurationError, OpticalFlowCalculationError
 from ..io.dicom import extract_metadata, read_dicom_clip
 from ..io.hdf5 import save_optical_flow_hdf5
 from ..io.waveforms import load_all_waveforms
-from ..ops.deepflow import deepflow_clip_flow
+from ..ops.deepflow import (
+    deepflow_clip_flow, deepflow_config_kwargs, deepflow_pairs,
+)
 from ..ops.imaging import gray_from_clip, img2uint8
 from ..ops.morphology import unpack_mask_bits
 from ..ops.saliency import fine_grained_saliency
-from ..ops.tvl1 import tvl1_clip_flow
+from ..ops.tvl1 import tvl1_clip_flow, tvl1_config_kwargs, tvl1_flow_pairs
 from ..utils import safe_makedir, trace_stage
 from .segment import (
     clean_mask_device, masks_to_host, predict_movie_thres, segment_labels,
@@ -110,6 +113,57 @@ def compute_clip_flow(images, of_algo: str = "TVL1",
     else:
         flow = deepflow_clip_flow(images, config=config)
     return flow[:, :h, :w, :]
+
+
+def compute_clip_flow_sharded(images, mesh, of_algo: str = "TVL1",
+                              config: Optional[OpticalFlowCalculationConfig]
+                              = None) -> torch.Tensor:
+    """Multi-device clip flow: the frame-pair axis split over the mesh's
+    'data' axis (parallel/mesh.py). Pairs are independent, so no shard
+    needs another's data beyond each pair's own two frames.
+
+    ``images`` (N, H, W), a tensor or a host array, goes to the mesh's
+    first data device; with ``config.bucket_shapes`` it is padded to its
+    spatial bucket. The pair count is padded to a multiple of the data
+    axis by repeating the last pair, each shard's pairs move to its device
+    and are solved there (under that device, which the CUDA kernels'
+    launches and K1's cooperative grid read) by ``tvl1_flow_pairs`` or
+    ``deepflow_pairs`` with the config's keywords, and the shards' flows
+    are gathered on the first data device and trimmed to
+    (N-1, H, W, 2). Each pair keeps its own state and stop flags in the
+    kernels and their plain versions, so a pair's flow does not depend on
+    the shard it lands in. The shards are launched one after another from
+    this thread: a host synchronisation inside one shard's solve holds
+    the next one back."""
+    config = config or default_optical_flow_config()
+    devices = mesh.data_devices
+    images = as_device_tensor(images, devices[0]).to(torch.float32)
+    h, w = images.shape[-2:]
+    if config.bucket_shapes and config.spatial_bucket > 1:
+        hb, wb = bucketed_spatial(h, w, config.spatial_bucket)
+        images = pad_spatial_edge(images, hb, wb)
+    i0 = images[:-1]
+    i1 = images[1:]
+    n_pairs = i0.shape[0]
+    n_data = len(devices)
+    pad = (-n_pairs) % n_data
+    if pad:
+        i0 = torch.cat([i0, i0[-1:].expand(pad, *i0.shape[1:])])
+        i1 = torch.cat([i1, i1[-1:].expand(pad, *i1.shape[1:])])
+    if of_algo.lower() == "tvl1":
+        solve, kw = tvl1_flow_pairs, tvl1_config_kwargs(config)
+    else:
+        solve, kw = deepflow_pairs, deepflow_config_kwargs(config)
+    per = i0.shape[0] // n_data
+    flows = []
+    for k, dev in enumerate(devices):
+        a = i0[k * per:(k + 1) * per].to(dev).contiguous()
+        b = i1[k * per:(k + 1) * per].to(dev).contiguous()
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            flows.append(solve(a, b, **kw))
+    flow = torch.cat([f.to(devices[0]) for f in flows])
+    return flow[:n_pairs, :h, :w, :]
 
 
 class AsyncHDF5Writer:

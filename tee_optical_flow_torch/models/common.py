@@ -124,23 +124,55 @@ class Adapter(nn.Module):
 BN_MOMENTUM = 0.9
 
 
-class Conv2d_BN(nn.Module):
-    """Conv2d without bias, then BatchNorm (eps 1e-5) (reference
-    tiny_vit_sam.py Conv2d_BN; keys ``c`` and ``bn``). The convolution
-    runs in ``dtype``; the norm computes (x - mean) * (rsqrt(var + eps) *
-    weight) + bias in float32 and returns float32, as flax
-    ``BatchNorm(dtype=float32)`` does.
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``BatchNorm`` over the channel axis of an NCHW map, with
+    ``nn.BatchNorm2d``'s parameters and buffers (keys ``weight``, ``bias``,
+    ``running_mean``, ``running_var``): (x - mean) * (rsqrt(var + eps) *
+    weight) + bias in float32, returned in float32.
 
     ``train=False`` normalises by the running statistics. ``train=True``
     has flax ``BatchNorm(use_running_average=False)``'s semantics: the
     batch mean and the biased batch variance over (N, H, W), in float32,
     the variance as E[x^2] - E[x]^2 clipped at 0; the new running
-    statistics, ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``
-    with the biased variance (``nn.BatchNorm2d`` would store the unbiased
-    one), are kept in ``pending_stats`` and written into the buffers only
-    by ``commit_batch_stats``. A forward that runs again under
+    statistics, ``momentum * running + (1 - momentum) * batch`` with the
+    biased variance (``nn.BatchNorm2d``'s own train mode would store the
+    unbiased one, and its ``momentum`` weighs the other side), are kept in
+    ``pending_stats`` and written into the buffers only by
+    ``commit_batch_stats``. A forward that runs again under
     ``torch.utils.checkpoint`` recomputes the same pending values, so the
-    statistics move once per step, as flax's mutable ``batch_stats``."""
+    statistics move once per step, as flax's mutable ``batch_stats``.
+    ``momentum`` is flax's (its default 0.99)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 eps: float = 1e-5) -> None:
+        super().__init__(num_features, eps=eps)
+        self.flax_momentum = momentum
+        self.pending_stats = None
+
+    def forward(self, y: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = y.to(torch.float32)
+        if train:
+            mean = y.mean((0, 2, 3))
+            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            m = self.flax_momentum
+            with torch.no_grad():
+                self.pending_stats = (
+                    m * self.running_mean + (1 - m) * mean.detach(),
+                    m * self.running_var + (1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((y - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+class Conv2d_BN(nn.Module):
+    """Conv2d without bias, then BatchNorm (eps 1e-5, momentum
+    BN_MOMENTUM) (reference tiny_vit_sam.py Conv2d_BN; keys ``c`` and
+    ``bn``). The convolution runs in ``dtype``; the norm is flax
+    ``BatchNorm(dtype=float32)``'s (``BatchNorm2d``: float32 out, batch
+    statistics with ``train=True``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -148,39 +180,22 @@ class Conv2d_BN(nn.Module):
         super().__init__()
         self.c = nn.Conv2d(in_ch, out_ch, kernel, stride, padding,
                            groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = BatchNorm2d(out_ch, momentum=BN_MOMENTUM)
         self.dtype = dtype
-        self.pending_stats = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = conv2d(x, self.c, self.dtype).to(torch.float32)
-        bn = self.bn
-        if train:
-            mean = y.mean((0, 2, 3))
-            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
-            with torch.no_grad():
-                self.pending_stats = (
-                    BN_MOMENTUM * bn.running_mean
-                    + (1 - BN_MOMENTUM) * mean.detach(),
-                    BN_MOMENTUM * bn.running_var
-                    + (1 - BN_MOMENTUM) * var.detach())
-        else:
-            mean, var = bn.running_mean, bn.running_var
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        return ((y - mean[:, None, None]) * mul[:, None, None]
-                + bn.bias[:, None, None])
+        return self.bn(conv2d(x, self.c, self.dtype), train)
 
 
 def commit_batch_stats(model: nn.Module) -> int:
-    """Write every Conv2d_BN's pending running statistics (from its last
+    """Write every BatchNorm2d's pending running statistics (from its last
     train-mode forward) into its buffers; returns how many moved."""
     n = 0
     for m in model.modules():
-        if isinstance(m, Conv2d_BN) and m.pending_stats is not None:
+        if isinstance(m, BatchNorm2d) and m.pending_stats is not None:
             mean, var = m.pending_stats
-            m.bn.running_mean.copy_(mean)
-            m.bn.running_var.copy_(var)
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
             m.pending_stats = None
             n += 1
     return n

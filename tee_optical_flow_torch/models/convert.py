@@ -8,7 +8,8 @@ arrays) across to the port: the inverse of that package's
 under the reference torch keys that ``Sam.load_state_dict(strict=True)``
 takes; ``prompt_autoencoder_state_dict_from_flax`` does the same for the
 JAX package's ``PromptAutoEncoder`` (the inverse of its
-``convert_prompt_autoencoder``). Layouts:
+``convert_prompt_autoencoder``), and ``baseline_state_dict_from_flax``
+for the networks of its models/baselines.py. Layouts:
 
   flax Conv kernel (kH, kW, I, O)            -> torch (O, I, kH, kW)
   flax depthwise kernel (k, k, 1, C)         -> torch (C, 1, k, k)
@@ -251,6 +252,71 @@ def prompt_autoencoder_state_dict_from_flax(params: Dict[str, Any]
     out.norm2d("image_downscaling.1", params["down_ln1"])
     out.norm2d("image_downscaling.4", params["down_ln2"])
     return out.sd
+
+
+def _flat(tree, prefix=()):
+    """(path, leaf) of a nested dict of arrays, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def baseline_state_dict_from_flax(name: str, variables: Dict[str, Any],
+                                  **kw) -> Dict[str, torch.Tensor]:
+    """A JAX ``models/baselines`` network's variables (numpy ``params``
+    and, where it has batch norms, ``batch_stats``) -> the state dict of
+    the port's network ``get_network(name, **kw)`` (``name`` may also be
+    ``"smalldecoder"`` for ``SmallDecoder(**kw)``), whose modules carry the
+    flax names. Layouts as above, and:
+
+      flax MultiHeadDotProductAttention      -> query/key/value Linear
+        query/key/value kernel (D, heads, hd)   weight (heads*hd, D)
+        and bias (heads, hd)                    and bias (heads*hd,)
+        out kernel (heads, hd, D)            -> out Linear weight (D, heads*hd)
+      raw parameters (ViT ``pos_embed``,     -> the same name, as they are
+        ``cls_tokens``, TAG ``mix``,
+        ``rpn_tokens``, ``rpn_qpos``, ``rpn_kpos``)
+
+    Raises ValueError when the keys or shapes differ from the port
+    network's: the ``kw`` (``in_channels``, ``image_size``, widths) must
+    describe the network the variables came from."""
+    from .baselines import SmallDecoder, get_network
+
+    net = SmallDecoder(**kw) if name == "smalldecoder" else get_network(
+        name, **kw)
+    out = _StateDict()
+    for path, leaf in _flat(variables.get("params", {})):
+        key, kind = ".".join(path[:-1]), path[-1]
+        a = _f32(leaf)
+        if kind == "kernel" and a.ndim == 4:
+            out.put(key + ".weight", a.transpose(3, 2, 0, 1))
+        elif kind == "kernel" and a.ndim == 3 and path[-2] == "out":
+            out.put(key + ".weight", a.reshape(-1, a.shape[-1]).T)
+        elif kind == "kernel":
+            out.put(key + ".weight", a.reshape(a.shape[0], -1).T)
+        elif kind == "bias":
+            out.put(key + ".bias", a.reshape(-1))
+        elif kind == "scale":
+            out.put(key + ".weight", a)
+        else:
+            out.put(".".join(path), a)
+    for path, leaf in _flat(variables.get("batch_stats", {})):
+        key = ".".join(path[:-1])
+        out.put(key + (".running_mean" if path[-1] == "mean"
+                       else ".running_var"), leaf)
+        out.sd[key + ".num_batches_tracked"] = torch.tensor(0)
+    want = net.state_dict()
+    if set(out.sd) != set(want):
+        raise ValueError(
+            f"{name}: keys differ from the port's network: missing "
+            f"{sorted(set(want) - set(out.sd))}, unexpected "
+            f"{sorted(set(out.sd) - set(want))}")
+    bad = [k for k, v in want.items() if v.shape != out.sd[k].shape]
+    if bad:
+        raise ValueError(f"{name}: shapes differ at {bad}")
+    return {k: out.sd[k] for k in want}
 
 
 ARCHS = ("vit_t", "vit_b", "vit_l", "vit_h")

@@ -11,6 +11,8 @@ on the last frame, so that every batch has one shape.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -21,7 +23,9 @@ from ..ops.imaging import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.warp import resize_bilinear
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
-from .quantize import dequantize_state, int8_serving_copy, tensor_bytes
+from .quantize import (
+    QuantizedTensor, dequantize_state, int8_serving_copy, tensor_bytes,
+)
 
 
 class Sam(nn.Module):
@@ -137,34 +141,70 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
     with ``weights_int8``), and its ``forward`` the model's forward as it
     runs it (normalised (B, 3, S, S) images -> (logits, iou)).
 
-    ``mesh`` (frame-axis data parallelism over several cards) is not
-    ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_clip_segmentor(mesh=...) (frame-axis data parallelism) is "
-            "not ported yet: ROADMAP.md, queue 1, item 6")
+    With ``mesh`` (parallel/mesh.py) the segmentor runs frame-axis data
+    parallel over the mesh's 'data' axis, the multi-device serving analog
+    of flow/pipeline.compute_clip_flow_sharded: one replica of the model
+    (or of its int8 serving copy) on each distinct device of
+    ``mesh.data_devices`` (a device named twice shares one; the model's
+    own device keeps ``model``), each micro-batch split into one chunk of
+    ``micro_batch / mesh.shape['data']`` frames per entry, run on that
+    entry's device, and the labels gathered in frame order (on the host,
+    or with ``labels_device`` on the clip's device). Frames are
+    independent, so the labels are the single-device segmentor's up to
+    the convolution algorithms a smaller batch may pick. A micro-batch
+    not divisible by the data axis raises ShardingError. The
+    ``resident_weight_bytes`` count every replica."""
     model.eval()
     device = next(model.parameters()).device
+    if mesh is not None:
+        from ..exceptions import ShardingError
+
+        if micro_batch % mesh.shape["data"]:
+            raise ShardingError(
+                f"micro_batch={micro_batch} not divisible by the mesh "
+                f"data axis ({mesh.shape['data']})")
+        devices = mesh.data_devices
+    else:
+        devices = [device]
     if weights_int8:
         net, qweights = int8_serving_copy(model)
-        kept = [t for n, t in net.state_dict().items() if n not in qweights]
-        resident = tensor_bytes(kept + list(qweights.values()))
         dtype = net.dtype
-
-        def forward(x: torch.Tensor):
-            return torch.func.functional_call(
-                net, dequantize_state(qweights, dtype), (x,))
     else:
         net = model
-        resident = tensor_bytes(model.state_dict().values())
-        forward = model
+    replicas = {}
+    resident = 0
+    for dev in dict.fromkeys(devices):
+        net_d = net if dev == device else copy.deepcopy(net).to(dev)
+        if weights_int8:
+            q_d = {k: QuantizedTensor(v.q.to(dev), v.scale.to(dev))
+                   for k, v in qweights.items()}
+            kept = [t for n, t in net_d.state_dict().items()
+                    if n not in q_d]
+            resident += tensor_bytes(kept + list(q_d.values()))
+
+            def forward(x: torch.Tensor, net_d=net_d, q_d=q_d):
+                return torch.func.functional_call(
+                    net_d, dequantize_state(q_d, dtype), (x,))
+        else:
+            resident += tensor_bytes(net_d.state_dict().values())
+            forward = net_d
+        replicas[dev] = forward
+    share = micro_batch // len(devices)
 
     @torch.no_grad()
-    def run_batch(chunk: torch.Tensor) -> torch.Tensor:
-        logits, _ = forward(preprocess_frames(chunk, net.image_size))
-        return torch.argmax(logits, dim=1).to(torch.uint8)
+    def run_batch(chunk: torch.Tensor, home: torch.device) -> torch.Tensor:
+        outs = []
+        for k, dev in enumerate(devices):
+            part = chunk[k * share:(k + 1) * share].to(dev)
+            with torch.cuda.device(dev) if dev.type == "cuda" \
+                    else contextlib.nullcontext():
+                logits, _ = replicas[dev](preprocess_frames(
+                    part, net.image_size))
+                outs.append(torch.argmax(logits, dim=1).to(torch.uint8))
+        return torch.cat([o.to(home) for o in outs])
 
-    def _labels(clip: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    def _labels(clip: torch.Tensor, th: int, tw: int,
+                home: torch.device) -> torch.Tensor:
         n = clip.shape[0]
         outs = []
         for s in _batch_starts(n, micro_batch):
@@ -173,7 +213,7 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
                 reps = micro_batch - chunk.shape[0]
                 chunk = torch.cat([chunk, chunk[-1:].expand(
                     reps, *chunk.shape[1:])], dim=0)
-            outs.append(run_batch(chunk.to(device)))
+            outs.append(run_batch(chunk, home))
         pred = _stitch(outs, n, micro_batch)
         yi, xi = _nearest_idx(pred.shape[1:3], th, tw)
         yi = torch.from_numpy(yi).to(pred.device)
@@ -183,16 +223,18 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
     def labels_device(clip_dev: torch.Tensor, clip_hw: Tuple[int, int]
                       ) -> torch.Tensor:
         """(N, H, W[, 3]) uint8 on the device -> (N, th, tw) uint8 labels
-        on the device; a constructor ``out_hw`` overrides ``clip_hw``."""
+        on the clip's device; a constructor ``out_hw`` overrides
+        ``clip_hw``."""
         th, tw = out_hw or clip_hw
-        return _labels(clip_dev, th, tw)
+        return _labels(clip_dev, th, tw, clip_dev.device)
 
     def segment(frames: np.ndarray) -> np.ndarray:
         frames = np.ascontiguousarray(frames)
         th, tw = out_hw or frames.shape[1:3]
-        return _labels(torch.from_numpy(frames), th, tw).cpu().numpy()
+        return _labels(torch.from_numpy(frames), th, tw,
+                       devices[0]).cpu().numpy()
 
     segment.labels_device = labels_device
     segment.resident_weight_bytes = resident
-    segment.forward = forward
+    segment.forward = replicas[devices[0]]
     return segment

@@ -261,12 +261,9 @@ def deepflow_pairs(i0: torch.Tensor, i1: torch.Tensor, *,
     return torch.stack([u, v], dim=-1)
 
 
-def deepflow_clip_flow(frames, config=None, device=None, **overrides
-                       ) -> torch.Tensor:
-    """Flow for all consecutive pairs of a (N, H, W) clip -> (N-1, H, W, 2).
-
-    ``frames`` is a tensor (its device is used unless ``device`` is given)
-    or a host array (sent to ``device``, ``cuda`` by default)."""
+def deepflow_config_kwargs(config=None) -> dict:
+    """``deepflow_pairs``' keywords under ``config`` (the JAX package's
+    clip defaults without one), as the clip entries pass them."""
     params = dict(alpha=8.0, delta=0.5, gamma=5.0, nscales=5, zoom=0.5,
                   iters=12, psi_iters=3, omega=1.6, matching=True,
                   match_radius=4, beta=0.3, fp_iters=3, max_disp=16,
@@ -284,6 +281,15 @@ def deepflow_clip_flow(frames, config=None, device=None, **overrides
                       fp_iters=config.deepflow_fp_iterations,
                       max_disp=config.deepflow_max_displacement,
                       interpolation=config.deepflow_interpolation)
-    params.update(overrides)
+    return params
+
+
+def deepflow_clip_flow(frames, config=None, device=None, **overrides
+                       ) -> torch.Tensor:
+    """Flow for all consecutive pairs of a (N, H, W) clip -> (N-1, H, W, 2).
+
+    ``frames`` is a tensor (its device is used unless ``device`` is given)
+    or a host array (sent to ``device``, ``cuda`` by default)."""
+    params = dict(deepflow_config_kwargs(config), **overrides)
     frames = as_device_tensor(frames, device)
     return deepflow_pairs(frames[:-1], frames[1:], **params)

@@ -256,12 +256,9 @@ def tvl1_flow_pairs(i0: torch.Tensor, i1: torch.Tensor, *,
     return torch.stack([u, v], dim=-1)
 
 
-def tvl1_clip_flow(frames, config=None, device=None, **overrides
-                   ) -> torch.Tensor:
-    """Flow for all consecutive pairs of a (N, H, W) clip -> (N-1, H, W, 2).
-
-    ``frames`` is a tensor (its device is used unless ``device`` is given)
-    or a host array (sent to ``device``, ``cuda`` by default)."""
+def tvl1_config_kwargs(config=None) -> dict:
+    """``tvl1_flow_pairs``' keywords under ``config`` (the JAX package's
+    defaults without one), as the clip entries pass them."""
     params = dict(lam=0.15, tau=0.25, theta=0.3, nscales=5, zoom=0.8,
                   warps=5, outer_iters=10, inner_iters=30, use_median=True)
     if config is not None:
@@ -278,7 +275,15 @@ def tvl1_clip_flow(frames, config=None, device=None, **overrides
             interpolation=config.tvl1_interpolation,
             use_pallas=config.tvl1_use_pallas,
         )
-    params.update(overrides)
+    return params
+
+
+def tvl1_clip_flow(frames, config=None, device=None, **overrides
+                   ) -> torch.Tensor:
+    """Flow for all consecutive pairs of a (N, H, W) clip -> (N-1, H, W, 2).
+
+    ``frames`` is a tensor (its device is used unless ``device`` is given)
+    or a host array (sent to ``device``, ``cuda`` by default)."""
+    params = dict(tvl1_config_kwargs(config), **overrides)
     frames = as_device_tensor(frames, device)
     return tvl1_flow_pairs(frames[:-1], frames[1:], **params)
-

@@ -286,18 +286,46 @@ def _resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
                     np.float32(0)).astype(np.float32)
 
 
+# images per product of a resize on a card (see _resize)
+RESIZE_GROUP = 8
+
+
 def _resize(img: torch.Tensor, h: int, w: int, method: str) -> torch.Tensor:
     """(B, H, W) -> (B, h, w): one float32 matrix product per resized axis
-    (an unchanged axis is skipped, as jax.image.resize skips it)."""
-    _, in_h, in_w = img.shape
-    out = img
+    (an unchanged axis is skipped, as jax.image.resize skips it).
+
+    On a card the products run over groups of RESIZE_GROUP images, the
+    last group padded with copies of the last image: cuBLAS picks its
+    kernel, and with it the order of a dot product's sums, from the
+    product's shape, and one product over the batch has a shape that
+    grows with the batch (a 30x40 -> 60x80 cubic resize of 16 images
+    differed from the same images' rows of a 32-image product by 3e-5 on
+    an H100: chip_smoke.batch_dependence). With one shape for every
+    group, an image's resize does not depend on the images beside it, and
+    a pair's flow not on the pairs solved with it
+    (flow/pipeline.compute_clip_flow_sharded is bit-equal to the
+    unsharded solve)."""
+    b, in_h, in_w = img.shape
+    ww = wh = None
     if in_w != w:
         ww = torch.from_numpy(_resize_weights(in_w, w, method)).to(img.device)
-        out = torch.matmul(out, ww)
     if in_h != h:
         wh = torch.from_numpy(_resize_weights(in_h, h, method)).to(img.device)
-        out = torch.matmul(wh.t(), out)
-    return out.contiguous()
+
+    def products(x):
+        if ww is not None:
+            x = torch.matmul(x, ww)
+        if wh is not None:
+            x = torch.matmul(wh.t(), x)
+        return x
+
+    if img.device.type != "cuda":
+        return products(img).contiguous()
+    pad = (-b) % RESIZE_GROUP
+    if pad:
+        img = torch.cat([img, img[-1:].expand(pad, in_h, in_w)])
+    return torch.cat([products(img[k:k + RESIZE_GROUP])
+                      for k in range(0, b + pad, RESIZE_GROUP)])[:b]
 
 
 def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -36,6 +36,7 @@ from tee_optical_flow_torch import cache as t_cache
 from tee_optical_flow_torch import config as t_config
 from tee_optical_flow_torch.cli import process as t_cli
 from tee_optical_flow_torch.exceptions import ConfigurationError as TError
+from tee_optical_flow_torch.exceptions import ShardingError as TShardingError
 from tee_optical_flow_torch.flow import pipeline as t_pipe
 from tee_optical_flow_torch.models import registry as t_registry
 from tee_optical_flow_torch.models import sam as t_sam
@@ -43,6 +44,7 @@ from tee_optical_flow_tpu import cache as j_cache
 from tee_optical_flow_tpu import config as j_config
 from tee_optical_flow_tpu.cli import process as j_cli
 from tee_optical_flow_tpu.exceptions import ConfigurationError as JError
+from tee_optical_flow_tpu.exceptions import ShardingError as JShardingError
 from tee_optical_flow_tpu.io.dicom_write import write_dicom_clip
 
 torch.set_num_threads(1)
@@ -346,20 +348,29 @@ def test_load_segmentor_reads_the_pth_as_jax_does(tmp_path, monkeypatch):
             assert torch.equal(torch.as_tensor(value), sd[key]), key
 
 
+# an orbax-only run dir (reading orbax needs JAX); data_axis 2 on fewer
+# devices than that: the CPU is one device, as a JAX process with one
+# device says, and on the one card the same (chip_smoke.phase_mesh)
 _SEG_REFUSALS = {
-    "orbax": (dict(pth=False), dict(), "item 8"),
-    "data_axis": (dict(), dict(data_axis=2), "item 6"),
+    "orbax": (dict(pth=False), dict(), NotImplementedError, "item 8"),
+    "data_axis": (dict(), dict(data_axis=2), TShardingError,
+                  "mesh 2x1 != 1 devices"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_SEG_REFUSALS))
 def test_load_segmentor_refusals(tmp_path, name):
-    make, call, item = _SEG_REFUSALS[name]
+    make, call, error, match = _SEG_REFUSALS[name]
     ckpt = _checkpoint_dir(tmp_path / "run", **make)
     if name == "orbax":
         os.makedirs(os.path.join(ckpt, "checkpoint_best"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         t_cli.load_segmentor(ckpt, device="cpu", **call)
+    if name == "data_axis":
+        from tee_optical_flow_tpu.parallel.mesh import make_mesh
+
+        with pytest.raises(JShardingError, match=match):
+            make_mesh(data_axis=2, devices=jax.devices()[:1])
     with pytest.raises(TError):
         t_cli.load_segmentor(ckpt, model_dtype="int4", device="cpu")
 

@@ -627,3 +627,74 @@ def test_sam_vit_b_card_matches_cpu(card):
         got8 = q8.forward(x)[0].float().cpu()
     assert float((got8 - low).abs().max()) <= INT8_REL * float(
         low.abs().max())
+
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards (the shards of a mesh on "
+                    "distinct devices)")
+    return [torch.device("cuda", i) for i in range(2)]
+
+
+def test_sharded_flow_runs_each_shard_on_its_card(two_cards, monkeypatch):
+    """compute_clip_flow_sharded over [cuda:0, cuda:1]: each shard's pairs
+    lie on its card and its solve runs with that card current (the CUDA
+    kernels' launches and K1's cooperative grid read it); the gathered
+    flow lies on cuda:0 and is bit-equal to the unsharded solve there."""
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow import pipeline as tp
+    from tee_optical_flow_torch.parallel import make_mesh
+
+    solve = tp.tvl1_flow_pairs
+    seen = []
+
+    def spy(a, b, **kw):
+        seen.append((a.device, b.device, torch.cuda.current_device()))
+        return solve(a, b, **kw)
+
+    monkeypatch.setattr(tp, "tvl1_flow_pairs", spy)
+    rng = np.random.default_rng(3)
+    frames = (rng.uniform(size=(6, 64, 96)) * 255).astype(np.float32)
+    cfg = default_optical_flow_config()
+    got = tp.compute_clip_flow_sharded(frames, make_mesh(devices=two_cards),
+                                       "TVL1", cfg)
+    assert seen == [(d, d, d.index) for d in two_cards]
+    seen.clear()
+    ref = tp.compute_clip_flow(frames, "TVL1", cfg, device=two_cards[0])
+    assert got.device == two_cards[0] and torch.equal(got, ref)
+
+
+def test_sharded_segmentor_on_two_cards(two_cards):
+    """vit_t at 256 in float32 on [cuda:0, cuda:1]: one replica per card
+    (twice the resident bytes), labels at least SAM_F32_AGREE equal to
+    the single-card segmentor's."""
+    from tee_optical_flow_torch.models import (
+        build_sam_vit_t, make_clip_segmentor,
+    )
+    from tee_optical_flow_torch.parallel import make_mesh
+
+    model = build_sam_vit_t(num_classes=3, image_size=256, seed=0,
+                            device=two_cards[0])
+    single = make_clip_segmentor(model)
+    sharded = make_clip_segmentor(model, mesh=make_mesh(devices=two_cards))
+    assert sharded.resident_weight_bytes == 2 * single.resident_weight_bytes
+    clip = (np.random.default_rng(4).uniform(size=(6, 96, 128, 3)) * 255
+            ).astype(np.uint8)
+    agree = float((single(clip) == sharded(clip)).mean())
+    assert agree >= SAM_F32_AGREE, agree
+
+
+def test_resize_is_batch_invariant_on_card(card):
+    """An image's resize does not depend on the images beside it or on
+    its place in the batch (products over fixed groups on a card): the
+    30x40 -> 60x80 cubic resize of the DeepFlow path's coarsest level
+    differed by 3e-5 between a 16- and a 32-image batch when the batch
+    went through one product."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(39, 30, 40)).astype(np.float32)).to(card)
+    for resize in (tw.resize_cubic, tw.resize_bilinear):
+        whole = resize(x, 60, 80)
+        for lo, hi in ((0, 16), (3, 20), (5, 6), (20, 39)):
+            assert torch.equal(whole[lo:hi], resize(x[lo:hi], 60, 80)), \
+                (lo, hi)

@@ -100,10 +100,8 @@ def test_training_imports_without_pil_tensorboardx():
 # (its _jnp-suffixed functions: the port's are torch functions) ...
 RENAMED = {"ops": {"img2uint8_jnp": "img2uint8",
                    "savgol_filter_jnp": "savgol_filter_torch"}}
-# ... that it does not carry yet (the mesh paths: ROADMAP queue 1, item 6)
-NOT_PORTED = {"parallel": {"make_mesh", "shard_batch", "batch_sharding",
-                           "replicated_sharding", "initialize_distributed"},
-              "exceptions": {"ShardingError"}}
+# ... that it does not carry yet (none: the mesh names came last)
+NOT_PORTED = {}
 # ... and the port's own public names beyond them
 PORT_ONLY = {"flow": {"process_folder"},
              "io": {"read_dicom_clip", "extract_metadata",

@@ -18,13 +18,16 @@ import jax  # noqa: F401  (the JAX reference runs on the CPU)
 from tee_optical_flow_torch.config import (
     OpticalFlowCalculationConfig as TorchConfig,
 )
-from tee_optical_flow_torch.exceptions import ConfigurationError
+from tee_optical_flow_torch.exceptions import (
+    ConfigurationError, ShardingError,
+)
 from tee_optical_flow_torch.flow import pipeline as t_pipe
 from tee_optical_flow_torch.flow import segment as t_seg
 from tee_optical_flow_torch.models.registry import (
     build_sam_vit_t, sam_model_registry,
 )
 from tee_optical_flow_torch.models.sam import make_clip_segmentor
+from tee_optical_flow_torch.parallel.mesh import make_mesh
 from tee_optical_flow_tpu.config import (
     OpticalFlowCalculationConfig as JaxConfig,
 )
@@ -174,7 +177,8 @@ def test_segmentor_mode_needs_a_segmentor(tmp_path):
 
 def test_unported_options_are_refused():
     # the PEFT adapters came with training, vit_b/l/h and int8 weights
-    # after it: they build now; the mesh is still refused
+    # after it, the mesh last: they build now; what is refused is what
+    # the JAX package refuses, a micro-batch the data axis does not divide
     adapted = build_sam_vit_t(num_classes=3, image_size=64, device="cpu",
                               adapter_stages=(1,), use_decoder_adapter=True)
     keys = adapted.state_dict()
@@ -184,5 +188,8 @@ def test_unported_options_are_refused():
     model = build_sam_vit_t(num_classes=3, image_size=64, device="cpu")
     assert callable(make_clip_segmentor(model, weights_int8=True))
     assert sam_model_registry["vit_b"] is not build_sam_vit_t
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_clip_segmentor(model, mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ShardingError, match="micro_batch=4 not divisible "
+                       r"by the mesh data axis \(3\)"):
+        make_clip_segmentor(model, mesh=mesh)
+    assert callable(make_clip_segmentor(model, micro_batch=6, mesh=mesh))
