@@ -66,6 +66,16 @@ arguments the TV-L1 and the DeepFlow path handed them):
     vit_b -> load_segmentor -> cli.process, 25 K1 calls); and the
     predictor, the automatic mask generator and torch.export on one
     frame;
+  * vit_t fine-tuning on a ('data', 'model') mesh of processes
+    (phase_train_mesh): the card named once per rank, over gloo, at full
+    width in strict float32; data axis 2, model axis 2 with
+    sam_param_shardings and 2x2, each held to the one-process step on
+    the same batches (losses, gradients, the 27 running statistics, eval
+    loss and DSC), with ms per step, bytes all-reduced and peak memory
+    per rank; cli.train's launcher on 2 ranks -> checkpoint_best.pth ->
+    load_segmentor (labels equal to the trained model's in rank 0) ->
+    cli.process (25 K1 calls); cli.train --data_axis 2 refused with
+    ShardingError on one card;
   * compressed DICOM and TV-L1 gamma (phase_compressed_gamma): the
     480x640 clip written uncompressed, RLE and JPEG-Lossless and read by
     the native C++ reader (csrc/dicomlite.cpp, built with g++), bit-equal;
@@ -97,7 +107,8 @@ profiler trace may only undercount). Imports nothing of JAX.
 block loop under builds with other tiles and steps per launch;
 ``vitdet_check()`` runs phase_vitdet alone, ``compressed_gamma_check()``
 phase_compressed_gamma (after phase_cohort, for its dataset),
-``mesh_check()`` phase_mesh and ``baselines_check()`` phase_baselines;
+``mesh_check()`` phase_mesh, ``baselines_check()`` phase_baselines and
+``train_mesh_check()`` phase_train_mesh;
 ``batch_dependence()`` and ``unet_algorithms()`` print what lies behind
 two of their findings. Exits non-zero,
 with no result line, when there is no CUDA device or a phase fails.
@@ -2662,6 +2673,317 @@ def phase_train(clip, workdir, has_h5py):
                 serve_agree=agree, data_s=data_s)
 
 
+MESH_STEPS, MESH_TIMED = 3, 3
+MESH_STATS_REL, MESH_DSC_ABS = 1e-5, 1e-3
+
+
+def _mesh_compare(tag, got, ref, steps):
+    """A mesh run's rank-0 results against the one-process run's (see
+    phase_train_mesh); returns the worst errors."""
+    losses = [abs(a - b) / abs(b) for a, b in zip(got["losses"][:steps],
+                                                  ref["losses"][:steps])]
+    assert max(losses) <= TRAIN_LOSS_REL, (tag, got["losses"],
+                                           ref["losses"])
+    assert sorted(got["grads"]) == sorted(ref["grads"]), tag
+    gmax = max(float(v.abs().max()) for v in ref["grads"].values())
+    worst, noise = 0.0, 0
+    for name, r in ref["grads"].items():
+        g = got["grads"][name]
+        scale = float(r.abs().max())
+        if scale < TRAIN_GRAD_NOISE * gmax:
+            noise += 1
+            assert float(g.abs().max()) < TRAIN_GRAD_NOISE * gmax, (tag,
+                                                                    name)
+            continue
+        rel = float((g - r).abs().max()) / scale
+        worst = max(worst, rel)
+        assert rel <= TRAIN_GRAD_REL, (tag, name, rel)
+    stats = 0.0
+    for kind in ("running_mean", "running_var"):
+        keys = [k for k in ref["stats"] if k.endswith(kind)]
+        top = max(float(ref["stats"][k].abs().max()) for k in keys)
+        for k in keys:
+            err = float((got["stats"][k] - ref["stats"][k]).abs().max())
+            stats = max(stats, err / top)
+    assert stats <= MESH_STATS_REL, (tag, stats)
+    eval_rel = abs(got["eval"][0] - ref["eval"][0]) / abs(ref["eval"][0])
+    dsc_err = abs(got["eval"][1] - ref["eval"][1])
+    assert eval_rel <= TRAIN_LOSS_REL and dsc_err <= MESH_DSC_ABS, (
+        tag, got["eval"], ref["eval"])
+    return dict(loss_rel=max(losses), grad_rel=worst, noise_tensors=noise,
+                stats_rel=stats, eval_loss_rel=eval_rel, dsc_abs=dsc_err,
+                n_stats=len(ref["stats"]) // 2)
+
+
+def _mesh_record(tag, res, ref):
+    """Backend, ms per step, bytes and host seconds of the all-reduces of
+    one step, batch-norm all-reduces per step and each rank's peak
+    memory, logged beside the card."""
+    r0 = res[0]
+    tally = r0["tally"]
+    moved = sum(v["bytes"] for v in tally.values())
+    secs = sum(v["seconds"] for v in tally.values())
+    rec = dict(backend=r0["backend"], ranks=len(res), ms_per_step=r0["ms"],
+               one_process_ms=ref["ms"],
+               bytes_all_reduced=moved, all_reduce_s=secs,
+               all_reduce_calls=sum(v["calls"] for v in tally.values()),
+               grad_bytes=tally["grads"]["bytes"],
+               grad_all_reduce_s=tally["grads"]["seconds"],
+               batchnorm_all_reduces=tally["sum"]["calls"],
+               model_axis_all_reduces=sum(tally[k]["calls"] for k in
+                                          ("copy", "reduce", "gather")),
+               max_memory_gb=[r["max_memory_gb"] for r in res],
+               one_process_max_memory_gb=ref["max_memory_gb"])
+    log(f"train mesh {tag}: {rec['ranks']} ranks on one card over "
+        f"{rec['backend']}; {rec['ms_per_step']:.3f} ms per step (median of "
+        f"{MESH_TIMED}, CUDA events, rank 0) against {ref['ms']:.3f} ms in "
+        f"one process; one step all-reduces {moved / 1e6:.3f} MB in "
+        f"{rec['all_reduce_calls']} calls, {secs * 1e3:.3f} ms of host "
+        f"time ({tally['grads']['bytes'] / 1e6:.3f} MB of gradients in "
+        f"{tally['grads']['seconds'] * 1e3:.3f} ms; "
+        f"{rec['batchnorm_all_reduces']} batch-norm all-reduces, "
+        f"{rec['model_axis_all_reduces']} of the model axis); peak memory "
+        f"per rank {[round(m, 3) for m in rec['max_memory_gb']]} GB "
+        f"(one process {ref['max_memory_gb']:.3f} GB)")
+    return rec
+
+
+def train_serve_rank(argv, entries, clip_path, labels_path):
+    """One rank of cli.train (phase_train_mesh (d)), TF32 off: rank 0
+    also writes, when it saves checkpoint_best.pth, the labels that the
+    model it holds gives the clip at ``clip_path``."""
+    import torch
+
+    from tee_optical_flow_torch.cli import train as cli_train
+    from tee_optical_flow_torch.models import make_clip_segmentor
+    from tee_optical_flow_torch.train import checkpoint as ckpt_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inner = ckpt_mod.save_checkpoint
+
+    def keep_labels(dir_checkpoint, model, *args, **kw):
+        clip = np.load(clip_path)
+        clip_dev = torch.from_numpy(clip).to(next(model.parameters()).device)
+        labels = make_clip_segmentor(model).labels_device(clip_dev,
+                                                          clip.shape[1:])
+        torch.save(labels.cpu(), labels_path)
+        return inner(dir_checkpoint, model, *args, **kw)
+
+    with substituted(ckpt_mod, "save_checkpoint", keep_labels):
+        return cli_train.main(argv, entries)
+
+
+def phase_train_mesh(clip, workdir, has_h5py):
+    """SAM vit_t fine-tuning on a ('data', 'model') mesh of processes, the
+    card named once per rank (gloo; nccl refuses two ranks on one card),
+    at full width (TRAIN_SIZE -> TRAIN_OUT, SAM_CLASSES classes, vanilla,
+    float32 with TF32 off, global batch TRAIN_BATCH), each run held to
+    the one-process run on the same batches (train/mesh_steps.run_steps
+    on both sides):
+
+      (a) data axis 2: 2 ranks, MESH_STEPS steps: each step's loss, one
+          step's gradients, the 27 batch norms' running statistics, the
+          eval loss and DSC;
+      (b) model axis 2 with sam_param_shardings: 2 ranks, 1 step;
+      (c) 2x2 with sam_param_shardings: 4 ranks, 1 step;
+      (d) cli.train's launcher (cli.train.main with the card named twice):
+          2 ranks, one epoch on PNGs of the clip; load_segmentor serves
+          rank 0's checkpoint_best.pth, whose labels of the clip equal the
+          ones the trained model gave in rank 0, and cli.process serves it
+          (25 K1 calls);
+      (e) cli.train --data_axis 2 on the one card raises ShardingError.
+
+    Records the backend, ms per step (CUDA events) 1 process against 2
+    and 4 ranks, the bytes all-reduced per step and their host time, the
+    batch-norm all-reduces per step and each rank's peak memory. The 2 and
+    4 ranks share one card: this measures the cost of the split, not a
+    speed-up."""
+    import torch
+
+    from tee_optical_flow_torch.cli import process as cli_process
+    from tee_optical_flow_torch.cli import train as cli_train
+    from tee_optical_flow_torch.exceptions import ShardingError
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.models import build_sam_vit_t
+    from tee_optical_flow_torch.parallel.launch import launch
+    from tee_optical_flow_torch.train.data import (
+        PublicDataset, batch_iterator,
+    )
+    from tee_optical_flow_torch.train.mesh_steps import run_steps
+
+    root = os.path.join(workdir, "train_mesh")
+    n = clip.shape[0]
+    lst = train_inputs(clip, root, range(n), "all")
+    ds = PublicDataset(os.path.join(root, "img"), os.path.join(root, "mask"),
+                       lst, phase="train", image_size=TRAIN_SIZE,
+                       out_size=TRAIN_OUT, seed=TRAIN_SEED)
+    batches = list(batch_iterator(ds, TRAIN_BATCH, seed=TRAIN_SEED))
+    batches = batches[:MESH_STEPS]
+    weights = os.path.join(root, "weights.pt")
+    data = os.path.join(root, "batches.pt")
+    model = build_sam_vit_t(num_classes=SAM_CLASSES, image_size=TRAIN_SIZE,
+                            seed=TRAIN_SEED, device="cpu")
+    torch.save({"model": model.state_dict(), "lora": None}, weights)
+    torch.save({"train": [(x, y, None) for x, y in batches],
+                "eval": batches[0]}, data)
+    del model
+    cfg = dict(num_cls=SAM_CLASSES, image_size=TRAIN_SIZE,
+               out_size=TRAIN_OUT, b=TRAIN_BATCH, lr=TRAIN_LR,
+               weight_decay=TRAIN_WD, epochs=1)
+
+    def spec(mesh, shard, steps):
+        k = mesh[0] * mesh[1]
+        return dict(model={"arch": "vit_t", "num_classes": SAM_CLASSES,
+                           "image_size": TRAIN_SIZE, "seed": TRAIN_SEED},
+                    weights=weights, batches=data, cfg=cfg,
+                    policy={"finetune_type": "vanilla"}, mesh=mesh,
+                    devices=["cuda:0"] * k, shard=shard, steps=steps,
+                    timed=MESH_TIMED, light=True)
+
+    out, refs = {}, {}
+    for steps in (MESH_STEPS, 1):
+        t0 = time.perf_counter()
+        ref = refs[steps] = run_steps([spec((1, 1), False, steps)])[0]
+        torch.cuda.empty_cache()
+        log(f"train mesh: one process, {steps} step(s): losses "
+            f"{[round(v, 6) for v in ref['losses']]}, eval {ref['eval']}, "
+            f"{ref['ms']:.3f} ms per step, {ref['batchnorms']} batch norms "
+            f"({time.perf_counter() - t0:.1f} s)")
+        assert ref["batchnorms"] == 27, ref["batchnorms"]
+    # one launch per world size: (a) and (b) share the 2 ranks
+    runs = (("a: data 2", (2, 1), False, MESH_STEPS),
+            ("b: model 2", (1, 2), True, 1), ("c: 2x2", (2, 2), True, 1))
+    results = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        mine = [r for r in runs if r[1][0] * r[1][1] == world]
+        ranks = launch(run_steps, ([spec(mesh, shard, steps)
+                                    for _, mesh, shard, steps in mine],),
+                       devices=["cuda:0"] * world, timeout=600)
+        for i, run in enumerate(mine):
+            results[run[0]] = [r[i] for r in ranks]
+        log(f"train mesh: {world} ranks ran {[r[0] for r in mine]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    for tag, mesh, shard, steps in runs:
+        res = results[tag]
+        assert all(r["backend"] == "gloo" for r in res), tag
+        assert res[0]["cross_replica"] == (27 if mesh[0] > 1 else 0), tag
+        assert bool(res[0]["split"]) == shard, tag
+        for r in res[1:]:
+            for name, g in res[0]["grads"].items():
+                assert torch.equal(r["grads"][name], g), (tag, name)
+            for name, v in res[0]["stats"].items():
+                assert torch.equal(r["stats"][name], v), (tag, name)
+            assert r["losses"] == res[0]["losses"], tag
+        err = _mesh_compare(tag, res[0], refs[steps], steps)
+        rec = _mesh_record(tag, res, refs[steps])
+        log(f"train mesh {tag} against one process ({steps} step(s)): "
+            f"{json.dumps(err)}; {len(res[0]['split'])} tensors split")
+        out[tag] = dict(err, **rec)
+
+    # (d) cli.train's launcher -> checkpoint_best.pth -> load_segmentor,
+    # cli.process
+    t0 = time.perf_counter()
+    n_tr, n_val = TRAIN_CLI_FRAMES
+    tr_list = train_inputs(clip, root, range(n_tr), "train")
+    val_list = train_inputs(clip, root, range(n_tr, n_tr + n_val), "val")
+    run = os.path.join(root, "run")
+    argv = ["--dir_checkpoint", run, "--img_folder",
+            os.path.join(root, "img"), "--mask_folder",
+            os.path.join(root, "mask"), "--train_img_list", tr_list,
+            "--val_img_list", val_list, "--num_cls", str(SAM_CLASSES),
+            "--epochs", "1", "-b", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+            "--warmup_period", "2", "--seed", str(TRAIN_SEED),
+            "--image_size", str(TRAIN_SIZE), "--out_size", str(TRAIN_OUT),
+            "--data_axis", "2", "--device", "cuda"]
+    clip_path = os.path.join(root, "clip.npy")
+    labels_path = os.path.join(root, "trained_labels.pt")
+    np.save(clip_path, clip)
+    entries = ["cuda:0"] * 2
+    rcs = launch(train_serve_rank, (argv, entries, clip_path, labels_path),
+                 devices=entries, timeout=600)
+    train_s = time.perf_counter() - t0
+    files = sorted(os.listdir(run))
+    assert rcs == [0, 0] and {"args.json", "checkpoint_best.pth"} <= set(
+        files), (rcs, files)
+    trained = torch.load(labels_path)
+    served = cli_process.load_segmentor(run, model_dtype="float32")
+    clip_dev = torch.from_numpy(np.ascontiguousarray(clip)).cuda()
+    got = served.labels_device(clip_dev, clip.shape[1:]).cpu()
+    agree = float((got == trained).float().mean())
+    log(f"train mesh d: cli.train {' '.join(argv[-6:])} on 2 ranks of the "
+        f"card: rc {rcs} in {train_s:.1f} s; {run} holds {files}; "
+        f"load_segmentor's labels of the {n}-frame clip against the ones "
+        f"the trained model gave in rank 0: {agree:.6f} equal")
+    assert agree == 1.0, agree
+    dcm_dir, save = os.path.join(root, "dcm"), os.path.join(root, "out")
+    os.makedirs(dcm_dir)
+    write_dicom_clip(os.path.join(dcm_dir, "trained.dcm"),
+                     np.repeat(clip[..., None], 3, axis=-1),
+                     frame_rate=FPS, pixel_spacing=SPACING_CM)
+    layouts = {}
+
+    def capture(save_path, flow_arr, echo_gray, mask_dict, metadata,
+                waveforms, verbose=False, **kw):
+        from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
+
+        layouts[save_path] = optical_flow_layout(
+            flow_arr, echo_gray, mask_dict, metadata, waveforms, **kw)
+
+    reset_counts()
+    t1 = time.perf_counter()
+    rc = cli_process.main(
+        ["--dcm_folder", dcm_dir, "--save_folder", save, "--checkpoint_dir",
+         run, "--mode", "RVIO_2class"],
+        _save_fn=None if has_h5py else capture)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"train mesh d: cli.process --checkpoint_dir {run} --mode "
+        f"RVIO_2class: rc {rc} in {time.perf_counter() - t1:.1f} s; "
+        f"launches {counts}")
+    assert rc == 0, rc
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    if not has_h5py:
+        (layout,) = layouts.values()
+        check_schema(saved_of_layout(layout), n, *clip.shape[1:],
+                     "RVIO_2class")
+    out["d: cli.train 2 ranks"] = dict(train_s=train_s, serve_agree=agree,
+                                       process_launches=counts,
+                                       seconds=time.perf_counter() - t0)
+
+    # (e) more data entries than cards
+    try:
+        cli_train.main(argv)
+        raise AssertionError("cli.train --data_axis 2 ran on one card")
+    except ShardingError as e:
+        log(f"train mesh e: cli.train --data_axis 2 on one card: "
+            f"ShardingError({e})")
+        out["e: data 2 on one card"] = str(e)
+    return out
+
+
+def train_mesh_check() -> int:
+    """phase_train_mesh alone, after the kernels' build: a shorter call
+    than the whole smoke, for work on this phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    _, has_h5py = phase_setup()
+    clip, _ = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        t0 = time.perf_counter()
+        out = phase_train_mesh(clip, workdir, has_h5py)
+        log(f"train mesh ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(out))
+    return 0
+
+
 def _flops_per_frame(model, frames):
     """FLOPs of ``model``'s forward on one normalised frame
     (FlopCounterMode, from the shapes of its matrix products and
@@ -4057,6 +4379,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
         train = phase_train(clip, workdir, has_h5py)
     with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        t0 = time.perf_counter()
+        train_mesh = phase_train_mesh(clip, workdir, has_h5py)
+        train_mesh_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
         vitdet = phase_vitdet(clip, workdir, has_h5py)
     t0 = time.perf_counter()
     baselines = phase_baselines()
@@ -4151,6 +4477,8 @@ def main() -> int:
     log("config 5: " + json.dumps(config5))
     log("analysis entry points: " + json.dumps(analysis))
     log("training: " + json.dumps(train))
+    log(f"training on a mesh ({train_mesh_s:.1f} s): "
+        + json.dumps(train_mesh))
     log("ViT-Det: " + json.dumps(vitdet))
     log("compressed DICOM and gamma: " + json.dumps(compressed))
     log(f"mesh ({mesh_s:.1f} s): " + json.dumps(mesh))

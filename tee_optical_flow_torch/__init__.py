@@ -40,18 +40,20 @@ Subpackage map (the JAX package's, as far as it is ported):
                         predictor, the automatic mask generator, export,
                         PromptAutoEncoder + torch checkpoint import; the
                         baseline network zoo (``baselines.get_network``)
-  train/                SAM fine-tuning: losses, schedule, AdamW loop,
-                        checkpoints, CSV dataset, prompts, eval, GAN
+  train/                SAM fine-tuning: losses, schedule, AdamW loop
+                        (one card, or a mesh of processes), checkpoints,
+                        CSV dataset, prompts, eval, GAN
   flow/                 DICOM -> masks -> flow -> HDF5 production pipeline
   viz/                  heatmaps, peak-line plots, overlay video frames
   batch/, api, legacy   cohort orchestration; analyze, plot, batch; the
                         reference monolith's names
   parallel/             the device mesh (frame-axis data parallelism of
                         the flow, ``flow.pipeline.compute_clip_flow_
-                        sharded``, and of the segmentor); host-side
+                        sharded``, and of the segmentor); the trainer's
+                        ranks (``launch``), their collectives and the
+                        weight sharding rule (``shardings``); host-side
                         sharding of file lists
   cli/                  process, peak_plots, analyze, train, val
-Not ported yet (ROADMAP.md, queue 1): training on several cards.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu`` on the command line), where the kernels' plain PyTorch

@@ -11,8 +11,17 @@ JAX CLI, plus ``--device`` (``cuda`` by default, ``cpu``). Writes
 ``--dir_checkpoint``, which ``cli.process --checkpoint_dir`` then serves.
 ``--arch vit_b|vit_l|vit_h`` fine-tunes a ViT-Det SAM (adapters go on
 the blocks ``--encoder_adapter_depths`` names; on vit_t on those
-stages). ``--data_axis`` or ``--model_axis`` above 1 (training on several cards)
-raise NotImplementedError: ROADMAP.md, queue 1, item 6.
+stages).
+
+``--data_axis``/``--model_axis`` keep the JAX CLI's meaning: a
+('data', 'model') mesh over every card (``--data_axis`` unset: a data
+axis over all of them), whose model axis holds replicas. A mesh of more
+than one entry trains on one process per entry: ``main`` starts them
+through parallel/launch.py (rank r on the mesh's entry r; with ``--device
+cpu`` the mesh is ``["cpu"] * (data x model)``, over gloo), each rank runs
+``main`` again inside the process group, and rank 0 writes the run's
+files. More entries than cards raise ShardingError, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=[None, "point", "box"],
                         help="prompted fine-tuning (the reference's "
                              "train_finetune_box variant)")
-    # several cards are not ported yet: values above 1 raise
+    # the ('data', 'model') mesh: a data axis over every card by default
     parser.add_argument("--data_axis", type=int, default=None)
     parser.add_argument("--model_axis", type=int, default=1)
     parser.add_argument("--layer_lr_decay", type=float, default=1.0,
@@ -83,24 +93,44 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> int:
-    """Run the CLI; returns 0."""
+def _mesh(args, devices=None):
+    """The run's mesh: over ``devices`` where given, else every card, or
+    as many CPU entries as the axes ask for with ``--device cpu``."""
+    from ..core import resolve_device
+    from ..parallel.mesh import make_mesh
+
+    if devices is None and resolve_device(args.device).type == "cpu":
+        devices = ["cpu"] * ((args.data_axis or 1) * args.model_axis)
+    return make_mesh(data_axis=args.data_axis, model_axis=args.model_axis,
+                     devices=devices)
+
+
+def main(argv=None, devices=None) -> int:
+    """Run the CLI; returns 0. ``devices`` names the mesh's devices in
+    place of every card (for example ``["cuda:0"] * 2``: two ranks on one
+    card)."""
     logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
 
+    import torch.distributed as dist
+
     from ..config import TrainConfig
-    from ..core import resolve_device
     from ..models.registry import sam_model_registry
     from ..train.data import PublicDataset, batch_iterator
     from ..train.loop import train_model
     from ..utils import safe_makedir
 
-    if (args.data_axis or 1) > 1 or args.model_axis > 1:
-        raise NotImplementedError(
-            f"--data_axis {args.data_axis} --model_axis {args.model_axis}: "
-            "training on several cards is not ported yet: ROADMAP.md, "
-            "queue 1, item 6")
-    device = resolve_device(args.device)
+    mesh = _mesh(args, devices)
+    entries = [str(d) for d in mesh.devices.ravel()]
+    if len(entries) > 1 and not dist.is_initialized():
+        from ..parallel.launch import launch
+
+        launch(main, (argv, entries), devices=entries)
+        return 0
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    device = mesh.devices.ravel()[dist.get_rank()
+                                  if dist.is_initialized() else 0]
     cfg = TrainConfig(
         arch=args.arch, finetune_type=args.finetune_type,
         num_cls=args.num_cls, image_size=args.image_size,
@@ -118,8 +148,9 @@ def main(argv=None) -> int:
         layer_lr_decay=args.layer_lr_decay,
         mesh_data_axis=args.data_axis, grad_accum=args.grad_accum,
         remat=args.remat, seed=args.seed)
-    safe_makedir(cfg.dir_checkpoint)
-    cfg.to_json(os.path.join(cfg.dir_checkpoint, "args.json"))
+    if lead:
+        safe_makedir(cfg.dir_checkpoint)
+        cfg.to_json(os.path.join(cfg.dir_checkpoint, "args.json"))
 
     build_kwargs = {}
     if args.finetune_type == "adapter":
@@ -169,7 +200,8 @@ def main(argv=None) -> int:
         train_batches=lambda: batch_iterator(train_ds, args.batch_size),
         val_batches=lambda: batch_iterator(val_ds, args.batch_size,
                                            shuffle=False, drop_last=False),
-        cfg=cfg, steps_per_epoch=steps_per_epoch, lora_params=lora_params)
+        cfg=cfg, steps_per_epoch=steps_per_epoch, lora_params=lora_params,
+        mesh=mesh)
     logging.getLogger(__name__).info("best DSC: %.4f", result["best_dsc"])
     return 0
 

@@ -13,6 +13,12 @@ type, applied at the JAX package's cast points rather than through
   * batch norm and the token layer norm compute in float32 and return
     float32 (flax ``BatchNorm``/``LayerNorm`` with ``dtype=float32``);
   * ``LayerNorm2d`` computes in float32 and returns its input's type.
+
+On a mesh of processes (train/loop.py), a dense layer that
+parallel/shardings.apply_shardings split over the 'model' axis carries
+its part as ``layer.shard``, and ``linear`` hands the product to it; a
+``BatchNorm2d`` becomes a ``CrossReplicaBatchNorm2d`` over the data axis
+(``convert_cross_replica_batchnorm``).
 """
 
 from __future__ import annotations
@@ -30,7 +36,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
            ) -> torch.Tensor:
-    """``layer`` applied in ``dtype``: input, weight and bias cast first."""
+    """``layer`` applied in ``dtype``: input, weight and bias cast first
+    (a layer split over the model axis: its ``shard``'s product)."""
+    shard = getattr(layer, "shard", None)
+    if shard is not None:
+        return shard(x, layer, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -152,9 +162,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, y: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = y.to(torch.float32)
         if train:
-            mean = y.mean((0, 2, 3))
-            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, var = self._batch_stats(y)
             m = self.flax_momentum
             with torch.no_grad():
                 self.pending_stats = (
@@ -165,6 +173,57 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((y - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+    def _batch_stats(self, y: torch.Tensor):
+        mean = y.mean((0, 2, 3))
+        var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean, min=0.0)
+        return mean, var
+
+
+class CrossReplicaBatchNorm2d(BatchNorm2d):
+    """``BatchNorm2d`` whose train-mode statistics are those of the global
+    batch split over the ranks of ``group`` (flax's BatchNorm in the JAX
+    package's jitted step over a batch sharded on 'data'): Sum x,
+    Sum x^2 and the count, one all-reduce over ``group``
+    (parallel/collectives.all_reduce_sum, whose backward sums the
+    gradients: each rank's share of the loss depends on every rank's
+    rows), then mean = Sum x / N and var = Sum x^2 / N - mean^2 clipped
+    at 0. The running statistics move by the global ones, so every rank
+    holds the same; the keys are ``BatchNorm2d``'s. ``nn.SyncBatchNorm``
+    would store the unbiased variance and weigh its momentum the other
+    way."""
+
+    group = None
+
+    def _batch_stats(self, y: torch.Tensor):
+        from ..parallel.collectives import all_reduce_sum
+
+        c = y.shape[1]
+        count = torch.full((1,), float(y.numel() // c), dtype=y.dtype,
+                           device=y.device)
+        sums = all_reduce_sum(torch.cat([y.sum((0, 2, 3)),
+                                         (y * y).sum((0, 2, 3)), count]),
+                              self.group)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        return mean, var
+
+
+def convert_cross_replica_batchnorm(model: nn.Module, group) -> int:
+    """Make every ``BatchNorm2d`` of ``model`` a
+    ``CrossReplicaBatchNorm2d`` over ``group`` in place (parameters,
+    buffers and keys unchanged); returns how many. ``group`` None (a data
+    axis of 1) changes nothing."""
+    if group is None:
+        return 0
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.__class__ = CrossReplicaBatchNorm2d
+            m.group = group
+            n += 1
+    return n
 
 
 class Conv2d_BN(nn.Module):

@@ -29,7 +29,7 @@ modules already use.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -49,30 +49,41 @@ class _StateDict:
         self.sd[key] = torch.from_numpy(np.array(value, np.float32,
                                                   copy=True))
 
+    def leaf(self, key: str, tree, name: str, layout=None) -> None:
+        """``tree[name]`` (``layout`` applied to it as float32) as
+        ``key``."""
+        value = _f32(tree[name])
+        self.put(key, value if layout is None else layout(value))
+
+    def width(self, p) -> int:
+        """The input channels of a flax Conv's params ``p``."""
+        return _f32(p["kernel"]).shape[2]
+
     def conv(self, key: str, p) -> None:
         # (kH, kW, I, O) -> (O, I, kH, kW); depthwise (k, k, 1, C) the same
-        self.put(key + ".weight", _f32(p["kernel"]).transpose(3, 2, 0, 1))
+        self.leaf(key + ".weight", p, "kernel",
+                  lambda k: k.transpose(3, 2, 0, 1))
         if "bias" in p:
-            self.put(key + ".bias", p["bias"])
+            self.leaf(key + ".bias", p, "bias")
 
     def conv_transpose(self, key: str, p) -> None:
-        self.put(key + ".weight",
-                 _f32(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
-        self.put(key + ".bias", p["bias"])
+        self.leaf(key + ".weight", p, "kernel",
+                  lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1))
+        self.leaf(key + ".bias", p, "bias")
 
     def dense(self, key: str, p) -> None:
-        self.put(key + ".weight", _f32(p["kernel"]).T)
+        self.leaf(key + ".weight", p, "kernel", lambda k: k.T)
         if "bias" in p:
-            self.put(key + ".bias", p["bias"])
+            self.leaf(key + ".bias", p, "bias")
 
     def norm(self, key: str, p) -> None:
         """flax LayerNorm (scale, bias) -> weight, bias."""
-        self.put(key + ".weight", p["scale"])
-        self.put(key + ".bias", p["bias"])
+        self.leaf(key + ".weight", p, "scale")
+        self.leaf(key + ".bias", p, "bias")
 
     def norm2d(self, key: str, p) -> None:
-        self.put(key + ".weight", p["weight"])
-        self.put(key + ".bias", p["bias"])
+        self.leaf(key + ".weight", p, "weight")
+        self.leaf(key + ".bias", p, "bias")
 
     def adapter(self, key: str, p) -> None:
         self.dense(key + ".D_fc1", p["down"])
@@ -80,14 +91,76 @@ class _StateDict:
 
     def conv_bn(self, key: str, p, s) -> None:
         self.conv(key + ".c", p["c"])
-        self.put(key + ".bn.weight", p["bn"]["scale"])
-        self.put(key + ".bn.bias", p["bn"]["bias"])
-        self.put(key + ".bn.running_mean", s["bn"]["mean"])
-        self.put(key + ".bn.running_var", s["bn"]["var"])
+        self.leaf(key + ".bn.weight", p["bn"], "scale")
+        self.leaf(key + ".bn.bias", p["bn"], "bias")
+        self.leaf(key + ".bn.running_mean", s["bn"], "mean")
+        self.leaf(key + ".bn.running_var", s["bn"], "var")
         self.sd[key + ".bn.num_batches_tracked"] = torch.tensor(0)
 
 
+class _Probe(dict):
+    """A stand-in for a flax variables tree of any SAM: every key holds a
+    sub-tree, each node knows its ``path``, every level has
+    ``numbered_children`` numbered children (read by ``_depth``), and
+    ``pos_embed`` is present only when ``vitdet``."""
+
+    def __init__(self, path: Tuple[str, ...], numbered_children: int,
+                 vitdet: bool) -> None:
+        super().__init__()
+        self.path, self.vitdet = path, vitdet
+        self.numbered_children = numbered_children
+
+    def __getitem__(self, key):
+        return _Probe(self.path + (key,), self.numbered_children,
+                      self.vitdet)
+
+    def __contains__(self, key) -> bool:
+        return key != "pos_embed" or self.vitdet
+
+    def get(self, key, default=None):
+        return self[key]
+
+
+class _PathRecorder(_StateDict):
+    """The converter's key map instead of its values: ``paths`` is
+    {port key: flax path} for every leaf it reads from a ``_Probe``."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.paths: Dict[str, Tuple[str, ...]] = {}
+
+    def put(self, key: str, value) -> None:
+        pass
+
+    def leaf(self, key: str, tree, name: str, layout=None) -> None:
+        self.paths[key] = tree.path + (name,)
+
+    def width(self, p) -> int:
+        return 1
+
+
+def sam_flax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{port parameter or buffer name: its path in the JAX package's
+    variables tree} for the port's SAM ``model`` (vit_t or vit_b/l/h):
+    the key map of ``sam_state_dict_from_flax`` itself, read by running it
+    on a ``_Probe`` tree (every count as large as the model's state dict,
+    every optional leaf present) and keeping the keys the model has. The
+    first element of a path is ``params`` or ``batch_stats``."""
+    keys = model.state_dict().keys()
+    depth = len(keys)
+    vitdet = "image_encoder.pos_embed" in keys
+    rec = _PathRecorder()
+    probe = _Probe((), depth, vitdet)
+    _sam_from_flax(rec, probe, depth - 1, 0)
+    return {k: rec.paths[k] for k in keys if k in rec.paths}
+
+
 def _depth(tree, prefix: str) -> int:
+    """How many children of ``tree`` are named ``prefix<i>`` (a tree may
+    state it as ``numbered_children``)."""
+    n = getattr(tree, "numbered_children", None)
+    if n is not None:
+        return n
     return sum(1 for k in tree if k.startswith(prefix))
 
 
@@ -115,8 +188,8 @@ def _tinyvit_from_flax(out: _StateDict, enc, enc_s,
             out.norm(t + ".attn.norm", b["attn"]["norm"])
             out.dense(t + ".attn.qkv", b["attn"]["qkv"])
             out.dense(t + ".attn.proj", b["attn"]["proj"])
-            out.put(t + ".attn.attention_biases",
-                    b["attn"]["attention_biases"])
+            out.leaf(t + ".attn.attention_biases", b["attn"],
+                     "attention_biases")
             out.conv_bn(t + ".local_conv", b["local_conv"], bs["local_conv"])
             out.norm(t + ".mlp.norm", b["mlp_norm"])
             out.dense(t + ".mlp.fc1", b["mlp"]["lin1"])
@@ -125,7 +198,7 @@ def _tinyvit_from_flax(out: _StateDict, enc, enc_s,
                 out.adapter(t + ".Space_Adapter", b["space_adapter"])
                 out.adapter(t + ".MLP_Adapter", b["mlp_adapter"])
     _neck_from_flax(out, enc)
-    width = _f32(enc["neck_conv1"]["kernel"]).shape[2]
+    width = out.width(enc["neck_conv1"])
     out.put(p + "norm_head.weight", np.ones(width))
     out.put(p + "norm_head.bias", np.zeros(width))
     out.put(p + "head.weight", np.zeros((head_classes, width)))
@@ -138,7 +211,7 @@ def _vitdet_from_flax(out: _StateDict, enc) -> None:
     ``Space_Adapter``, ``MLP_Adapter``, ``Depth_Adapter``)."""
     p = "image_encoder."
     out.conv(p + "patch_embed.proj", enc["patch_embed"])
-    out.put(p + "pos_embed", enc["pos_embed"])
+    out.leaf(p + "pos_embed", enc, "pos_embed")
     for i in range(_depth(enc, "block")):
         b = enc[f"block{i}"]
         t = f"{p}blocks.{i}"
@@ -147,8 +220,8 @@ def _vitdet_from_flax(out: _StateDict, enc) -> None:
         out.dense(t + ".attn.qkv", b["attn"]["qkv"])
         out.dense(t + ".attn.proj", b["attn"]["proj"])
         if "rel_pos_h" in b["attn"]:
-            out.put(t + ".attn.rel_pos_h", b["attn"]["rel_pos_h"])
-            out.put(t + ".attn.rel_pos_w", b["attn"]["rel_pos_w"])
+            out.leaf(t + ".attn.rel_pos_h", b["attn"], "rel_pos_h")
+            out.leaf(t + ".attn.rel_pos_w", b["attn"], "rel_pos_w")
         out.dense(t + ".mlp.lin1", b["mlp"]["lin1"])
         out.dense(t + ".mlp.lin2", b["mlp"]["lin2"])
         for flax_name, key in (("space_adapter", "Space_Adapter"),
@@ -176,10 +249,16 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
     The reference TinyViT's classifier head (``image_encoder.norm_head``,
     ``image_encoder.head``), which SAM never runs and the JAX package
     does not hold, is filled with ones and zeros."""
+    out = _StateDict()
+    _sam_from_flax(out, variables, num_classes, head_classes)
+    return out.sd
+
+
+def _sam_from_flax(out: _StateDict, variables, num_classes: int,
+                   head_classes: int) -> None:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     enc = params["image_encoder"]
-    out = _StateDict()
     if "pos_embed" in enc:
         _vitdet_from_flax(out, enc)
     else:
@@ -187,12 +266,12 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
 
     pe = params["prompt_encoder"]
     p = "prompt_encoder."
-    out.put(p + "pe_layer.positional_encoding_gaussian_matrix",
-            pe["pe_layer"]["positional_encoding_gaussian_matrix"])
+    out.leaf(p + "pe_layer.positional_encoding_gaussian_matrix",
+             pe["pe_layer"], "positional_encoding_gaussian_matrix")
     for i in range(4):
-        out.put(f"{p}point_embeddings.{i}.weight", pe[f"point_embed_{i}"])
-    out.put(p + "not_a_point_embed.weight", pe["not_a_point_embed"])
-    out.put(p + "no_mask_embed.weight", pe["no_mask_embed"])
+        out.leaf(f"{p}point_embeddings.{i}.weight", pe, f"point_embed_{i}")
+    out.leaf(p + "not_a_point_embed.weight", pe, "not_a_point_embed")
+    out.leaf(p + "no_mask_embed.weight", pe, "no_mask_embed")
     out.conv(p + "mask_downscaling.0", pe["mask_conv1"])
     out.norm2d(p + "mask_downscaling.1", pe["mask_ln1"])
     out.conv(p + "mask_downscaling.3", pe["mask_conv2"])
@@ -206,8 +285,8 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
         raise CheckpointError(
             f"the variables hold {n_tokens} mask tokens, num_classes="
             f"{num_classes} needs {num_classes + 1}")
-    out.put(p + "iou_token.weight", md["iou_token"])
-    out.put(p + "mask_tokens.weight", md["mask_tokens"])
+    out.leaf(p + "iou_token.weight", md, "iou_token")
+    out.leaf(p + "mask_tokens.weight", md, "mask_tokens")
     tf = md["transformer"]
     for i in range(_depth(tf, "layer")):
         lay = tf[f"layer{i}"]
@@ -236,7 +315,6 @@ def sam_state_dict_from_flax(variables: Dict[str, Any], num_classes: int = 3,
     for j in range(3):
         out.dense(f"{p}iou_prediction_head.layers.{j}",
                   md["iou_prediction_head"][f"layer{j}"])
-    return out.sd
 
 
 def prompt_autoencoder_state_dict_from_flax(params: Dict[str, Any]

@@ -49,7 +49,12 @@ def attention_bias_idxs(res: int) -> Tuple[np.ndarray, int]:
 class Attention(nn.Module):
     """Pre-norm multi-head attention with a learned bias per token offset,
     on (B, N, C) windows. The scores and the weighted sum accumulate in
-    float32; the softmax runs in float32 and is cast to ``dtype``."""
+    float32; the softmax runs in float32 and is cast to ``dtype``. Split
+    over a model axis whose blocks hold whole heads
+    (parallel/shardings.py), it runs this rank's heads: ``head_part``
+    gives their biases."""
+
+    head_part = None
 
     def __init__(self, dim: int, key_dim: int, num_heads: int,
                  resolution: int, attn_ratio: float = 1.0,
@@ -75,14 +80,17 @@ class Attention(nn.Module):
         kd = self.key_dim
         x = layer_norm(x, self.norm)
         qkv = linear(x, self.qkv, self.dtype)
-        qkv = qkv.reshape(b, n, self.num_heads, 2 * kd + self.d)
+        qkv = qkv.reshape(b, n, -1, 2 * kd + self.d)
         qkv = qkv.permute(0, 2, 1, 3).to(torch.float32)  # (B, H, N, *)
         q, k, v = qkv[..., :kd], qkv[..., kd:2 * kd], qkv[..., 2 * kd:]
         attn = torch.matmul(q, k.transpose(-2, -1)) * (kd ** -0.5)
-        attn = attn + self.attention_biases[:, self.attention_bias_idxs]
+        biases = self.attention_biases
+        if self.head_part is not None:
+            biases = self.head_part(biases)
+        attn = attn + biases[:, self.attention_bias_idxs]
         attn = torch.softmax(attn, dim=-1).to(self.dtype)
         out = torch.matmul(attn.to(torch.float32), v).to(self.dtype)
-        out = out.transpose(1, 2).reshape(b, n, self.dh)
+        out = out.transpose(1, 2).reshape(b, n, -1)
         return linear(out, self.proj, self.dtype)
 
 

@@ -1,5 +1,6 @@
 """SAM fine-tuning loop: AdamW with warmup -> poly and layer decay, on one
-card (the JAX package's train/loop.py).
+card or on a ('data', 'model') mesh of processes (the JAX package's
+train/loop.py).
 
 Parity with reference SingleGPU_train_finetune_noprompt.py:45-190: AdamW
 (betas (0.9, 0.999), eps 1e-8, weight decay ``cfg.weight_decay``), Dice +
@@ -31,8 +32,32 @@ the backward; with ``remat`` the forward runs under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``), whose
 recompute leaves the statistics as they were.
 
-Training on several cards (the JAX package's ('data', 'model') mesh) is
-not ported yet: ``mesh_data_axis > 1`` or a mesh raises.
+On a mesh of more than one entry the step runs on one process per entry
+(parallel/launch.py, parallel/mesh.process_mesh), and gives the numbers of
+the one-process step over the same global batch, as the JAX package's
+jitted step over a sharded batch does:
+  * rank (d, j) takes rows d*B/n to (d+1)*B/n of the global batch (an
+    indivisible batch raises ValueError, as the JAX package's device_put);
+  * the batch norms take the global batch's statistics
+    (models/common.CrossReplicaBatchNorm2d over the data group);
+  * rank r backpropagates its share (B_r / B) * combined_loss of its rows
+    (parallel/collectives states the convention); the gradients are summed
+    over the data group in one flat all-reduce, those of the parameters
+    the model axis holds whole then come from the model group's first
+    rank (one flat broadcast), and the metrics are the sums of the
+    shares;
+  * with ``make_train_step(param_sharding_fn=)``
+    (parallel/shardings.sam_param_shardings) the split weights keep this
+    rank's block and their gradients stay local to it; without it the
+    model axis holds replicas, as in the JAX package's ``train_model``,
+    which passes none; ``TrainState.state_dict`` gathers whole tensors
+    and ``load_state_dict`` takes this rank's blocks;
+  * eval's loss and DSC are sums of shares over the data group; rank 0's
+    values decide the best-DSC checkpoint and the early stop on every
+    rank;
+  * rank 0 writes the tensorboard scalars, ``checkpoint_best.pth`` and
+    ``train_state.pt``, so that the one-card ``load_segmentor`` serves
+    them; a resume loads them on every rank.
 """
 
 from __future__ import annotations
@@ -50,17 +75,20 @@ import torch.utils.checkpoint
 
 from ..config import TrainConfig
 from ..core import resolve_device
-from ..models.common import commit_batch_stats
+from ..models.common import (
+    commit_batch_stats, convert_cross_replica_batchnorm,
+)
 from ..models.lora import merge_lora
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, ProcessMesh, make_mesh, process_mesh
+from ..parallel.shardings import (
+    apply_shardings, block_of, gather_tensor, merge_lora_shards,
+)
 from ..utils import safe_makedir
 from .losses import combined_loss, dice_coeff_multi_class
 from .schedule import tinyvit_lr_scale_for_name, warmup_poly_schedule
 
 logger = logging.getLogger(__name__)
-
-_MULTI_CARD = ("training on several cards (the JAX package's ('data', "
-               "'model') mesh, DDP here) is not ported yet: ROADMAP.md, "
-               "queue 1, item 6")
 
 
 # ---------------------------------------------------------------------------
@@ -107,23 +135,100 @@ def partition_params(model: nn.Module, pred: Callable[[str], bool]):
 
 @dataclasses.dataclass
 class TrainConfigRuntime:
-    """Resolved runtime bundle built from a TrainConfig."""
+    """Resolved runtime bundle built from a TrainConfig: this process's
+    ``device``, the ``mesh`` and, on a mesh of more than one entry, this
+    rank's place on it (``procs``)."""
 
     cfg: TrainConfig
     device: torch.device
     schedule: Callable[[int], float]
+    mesh: Optional[Mesh] = None
+    procs: Optional[ProcessMesh] = None
+
+    @property
+    def data_group(self):
+        return None if self.procs is None else self.procs.data_group
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.procs is None else self.procs.rank
+
+    def local_rows(self, *arrays):
+        """(this rank's contiguous rows of each array, B_r / B); None
+        stays None."""
+        if self.data_group is None:
+            return arrays, 1.0
+        n, d = self.procs.n_data, self.procs.data
+        b = len(arrays[0])
+        if b % n:
+            raise ValueError(
+                f"a batch of {b} rows is sharded over the data axis ({n}), "
+                f"which must divide it (the JAX package's device_put raises "
+                f"so too)")
+        lo, hi = d * b // n, (d + 1) * b // n
+        return (tuple(None if a is None else a[lo:hi] for a in arrays),
+                (hi - lo) / b)
+
+    def sync_grads(self, state: "TrainState") -> None:
+        """Sum the gradients over the data group; then the first rank of
+        the model group sends the gradients of the parameters that the
+        model axis holds whole to the others, so that their replicas stay
+        bit-equal (two runs of one convolution's weight gradient on a
+        card may differ in their last bits)."""
+        if self.procs is None:
+            return
+        grads = [(n, p.grad) for n, p in state.trainable
+                 if p.grad is not None]
+        if self.data_group is not None:
+            collectives.sum_flat([g for _, g in grads], self.data_group)
+        if self.procs.model_group is not None:
+            layout = getattr(state.model, "shard_layout", None) or {}
+            collectives.broadcast_flat(
+                [g for n, g in grads if n not in layout],
+                self.procs.data * self.procs.n_model, self.procs.model_group)
+
+    def sum_shares(self, values: List[torch.Tensor], share: float):
+        """The sums over the data group of ``share`` x each value."""
+        if self.data_group is None:
+            return values
+        t = torch.stack([v.detach().to(torch.float32) for v in values])
+        t = collectives.sum_values(t * share, self.data_group)
+        return list(t.unbind())
 
 
 def build_runtime(cfg: TrainConfig, steps_per_epoch: int, device=None,
                   mesh=None) -> TrainConfigRuntime:
-    if mesh is not None or (cfg.mesh_data_axis or 1) > 1:
-        raise NotImplementedError(_MULTI_CARD)
+    """The runtime on ``mesh`` (any shape, 1x1 included). Without one:
+    in a process group of several ranks, or with ``cfg.mesh_data_axis``
+    above 1, the JAX package's mesh (a data axis of
+    ``cfg.mesh_data_axis``, every entry when None, over every card, or
+    over the ranks' CPU entries when ``device`` is the CPU); else a 1x1
+    mesh on ``device`` (``cli.train`` builds the every-card mesh and
+    starts its ranks). Too few devices raise ShardingError; a mesh of
+    more than one entry needs a process group of as many ranks
+    (parallel/launch.py)."""
+    if mesh is None:
+        dev = resolve_device(device)
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_available()
+                 and torch.distributed.is_initialized() else 1)
+        if world == 1 and (cfg.mesh_data_axis or 1) == 1:
+            mesh = make_mesh(1, 1, [dev])
+        else:
+            mesh = make_mesh(data_axis=cfg.mesh_data_axis,
+                             devices=None if dev.type == "cuda"
+                             else [dev] * world)
+    procs = process_mesh(mesh)
+    if procs is not None:
+        device = procs.device
+    elif device is None:
+        device = mesh.devices.ravel()[0]
     max_iters = cfg.epochs * max(steps_per_epoch, 1)
     schedule = (warmup_poly_schedule(cfg.lr, cfg.warmup_period, max_iters,
                                      cfg.poly_power)
                 if cfg.warmup else (lambda step: cfg.lr))
     return TrainConfigRuntime(cfg=cfg, device=resolve_device(device),
-                              schedule=schedule)
+                              schedule=schedule, mesh=mesh, procs=procs)
 
 
 class TrainOptimizer:
@@ -135,16 +240,20 @@ class TrainOptimizer:
     def __init__(self, named_params: List[Tuple[str, torch.Tensor]],
                  runtime: TrainConfigRuntime) -> None:
         cfg = runtime.cfg
-        groups: Dict[float, List[torch.Tensor]] = {}
+        groups: Dict[float, List[Tuple[str, torch.Tensor]]] = {}
         for name, p in named_params:
             scale = (tinyvit_lr_scale_for_name(name, cfg.layer_lr_decay)
                      if cfg.layer_lr_decay != 1.0 else 1.0)
-            groups.setdefault(scale, []).append(p)
+            groups.setdefault(scale, []).append((name, p))
+        self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
+        # the parameters' names in the optimizer's state-dict order
+        self.state_names = [n for items in groups.values() for n, _ in items]
         # each group's lr is its scale; the LambdaLR factor is the
         # schedule, so a group steps at scale * schedule(count)
         self.opt = torch.optim.AdamW(
-            [{"params": ps, "lr": scale} for scale, ps in groups.items()],
+            [{"params": [p for _, p in items], "lr": scale}
+             for scale, items in groups.items()],
             lr=1.0, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=cfg.weight_decay)
         self.sched = torch.optim.lr_scheduler.LambdaLR(
@@ -202,26 +311,59 @@ class TrainOptimizer:
 class TrainState:
     """What a train step reads and moves: the model (its frozen and
     trainable parameters and its batch statistics), the LoRA factors of a
-    LoRA run, the trainable (name, tensor) list and the optimizer."""
+    LoRA run, the trainable (name, tensor) list and the optimizer.
+
+    ``state_dict`` holds whole tensors: on a model split over the model
+    axis it gathers them (a collective: every rank calls it), and
+    ``load_state_dict`` takes this rank's blocks."""
 
     model: nn.Module
     lora: Optional[Dict[str, Dict[str, torch.Tensor]]]
     trainable: List[Tuple[str, torch.Tensor]]
     optimizer: TrainOptimizer
 
+    def _layout(self):
+        return getattr(self.model, "shard_layout", None) or {}
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors."""
+        layout = self._layout()
+        return {k: gather_tensor(v, layout.get(k))
+                for k, v in self.model.state_dict().items()}
+
+    def _optimizer_tensors(self, state, fn):
+        """``state`` (TrainOptimizer.state_dict()) with ``fn(tensor,
+        shard)`` applied to every per-parameter tensor."""
+        layout, opt = self._layout(), self.optimizer
+        out = dict(state)
+        inner = dict(state["optimizer"])
+        inner["state"] = {
+            idx: {k: (fn(v, layout.get(opt.state_names[idx]))
+                      if torch.is_tensor(v) and v.ndim else v)
+                  for k, v in st.items()}
+            for idx, st in state["optimizer"]["state"].items()}
+        out["optimizer"] = inner
+        out["acc"] = [None if a is None else fn(a, layout.get(n))
+                      for a, n in zip(state["acc"], opt.names)]
+        return out
+
     def state_dict(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(), "lora": self.lora,
-                "optimizer": self.optimizer.state_dict(),
+        return {"model": self.model_state_dict(), "lora": self.lora,
+                "optimizer": self._optimizer_tensors(
+                    self.optimizer.state_dict(), gather_tensor),
                 "generator": torch.get_rng_state()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
+        layout = self._layout()
+        self.model.load_state_dict({k: block_of(v, layout.get(k))
+                                    for k, v in state["model"].items()})
         if self.lora is not None:
             with torch.no_grad():
                 for site, fac in self.lora.items():
                     for k, t in fac.items():
                         t.copy_(state["lora"][site][k])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.load_state_dict(self._optimizer_tensors(
+            state["optimizer"], block_of))
         torch.set_rng_state(state["generator"])
 
 
@@ -240,7 +382,11 @@ def _forward(model, lora, heads_by_dim, images, boxes, train: bool):
     kw = dict(boxes=boxes, multimask_output=True, train=train)
     if lora is None:
         return model(images, **kw)
-    merged = merge_lora(dict(model.named_parameters()), lora, heads_by_dim)
+    if getattr(model, "shard_layout", None):
+        merged = merge_lora_shards(model, lora, heads_by_dim)
+    else:
+        merged = merge_lora(dict(model.named_parameters()), lora,
+                            heads_by_dim)
     return torch.func.functional_call(model, merged, (images,), kw)
 
 
@@ -248,20 +394,27 @@ def make_train_step(model: nn.Module, runtime: TrainConfigRuntime, *,
                     finetune_type: str = "vanilla",
                     if_update_encoder: bool = True,
                     heads_by_dim: Optional[Dict[int, int]] = None,
-                    remat: bool = False):
+                    remat: bool = False,
+                    param_sharding_fn: Optional[Callable] = None):
     """Returns (init_state, train_step).
 
-    ``init_state(lora_params=None) -> TrainState`` partitions the model's
-    parameters (LoRA: ``lora_params`` from models/lora.init_lora) and
-    builds the optimizer; it raises ValueError when the policy selects no
-    parameter. ``train_step(state, images, labels, boxes=None)`` takes
+    ``init_state(lora_params=None) -> TrainState`` readies the model for
+    the runtime's mesh (cross-replica batch norms over a data axis above
+    1; ``param_sharding_fn(mesh, model)``'s shardings applied, as the JAX
+    package's ``make_train_step(param_sharding_fn=)``), partitions the
+    model's parameters (LoRA: ``lora_params`` from models/lora.init_lora)
+    and builds the optimizer; it raises ValueError when the policy selects
+    no parameter. ``train_step(state, images, labels, boxes=None)`` takes
     host batches (images (B, S, S, 3) normalised, labels (B, out, out)
     int, and for box-prompted fine-tuning boxes (B, 4) in pixels of the
     S x S image, the reference's SingleGPU_train_finetune_box), runs the
     forward and backward, commits the batch statistics, steps the
     optimizer and returns the detached metrics {total_loss, loss_dice,
     loss_ce}. ``train_step.loss_and_grads`` does the same without the
-    optimizer step and returns (metrics, {name: grad})."""
+    optimizer step and returns (metrics, {name: grad}). On a mesh the
+    batches are the global ones; every rank takes its rows, and the
+    metrics and gradients are the global step's (see the module
+    docstring)."""
     device = runtime.device
 
     def loss_fn(state, images, labels, boxes):
@@ -277,10 +430,14 @@ def make_train_step(model: nn.Module, runtime: TrainConfigRuntime, *,
         return combined_loss(logits, labels)
 
     def backward(state, images, labels, boxes):
+        (images, labels, boxes), share = runtime.local_rows(images, labels,
+                                                           boxes)
         x, y, b = _to_device(images, labels, boxes, device)
         total, ld, lc = loss_fn(state, x, y, b)
-        total.backward()
+        (total if share == 1.0 else total * share).backward()
+        runtime.sync_grads(state)
         commit_batch_stats(state.model)
+        total, ld, lc = runtime.sum_shares([total, ld, lc], share)
         return {"total_loss": total.detach(), "loss_dice": ld.detach(),
                 "loss_ce": lc.detach()}
 
@@ -300,6 +457,11 @@ def make_train_step(model: nn.Module, runtime: TrainConfigRuntime, *,
     train_step.loss_and_grads = loss_and_grads
 
     def init_state(lora_params=None) -> TrainState:
+        if runtime.procs is not None:
+            convert_cross_replica_batchnorm(model, runtime.data_group)
+            if param_sharding_fn is not None:
+                apply_shardings(model, param_sharding_fn(runtime.mesh,
+                                                         model))
         pred = trainable_predicate(finetune_type, if_update_encoder)
         trainable, _ = partition_params(model, pred)
         if finetune_type == "lora":
@@ -326,17 +488,21 @@ def make_eval_step(model: nn.Module, runtime: TrainConfigRuntime,
                    num_cls: int, finetune_type: str = "vanilla",
                    heads_by_dim: Optional[Dict[int, int]] = None):
     """``eval_step(state, images, labels) -> (total_loss, dsc)``: the
-    model on the running statistics (``train=False``), no gradients."""
+    model on the running statistics (``train=False``), no gradients; on a
+    mesh, of the global batch (sums of the ranks' shares)."""
     device = runtime.device
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels):
+        (images, labels), share = runtime.local_rows(images, labels)
         x, y, _ = _to_device(images, labels, None, device)
         logits, _ = _forward(state.model, state.lora, heads_by_dim, x, None,
                              False)
         total, _, _ = combined_loss(logits, y)
         pred = torch.argmax(logits, dim=1)
-        return total, dice_coeff_multi_class(pred, y, num_cls)
+        dsc = dice_coeff_multi_class(pred, y, num_cls)
+        total, dsc = runtime.sum_shares([total, dsc], share)
+        return total, dsc
 
     return eval_step
 
@@ -362,16 +528,22 @@ def train_model(model: nn.Module, train_batches: Callable[[], Iterable],
                 heads_by_dim: Optional[Dict[int, int]] = None,
                 writer=None, mesh=None, resume: bool = False,
                 save_state_every: int = 0) -> Dict[str, Any]:
-    """Run the fine-tuning loop on the model's device.
+    """Run the fine-tuning loop on the model's device, or on ``mesh``
+    (see build_runtime; a mesh of more than one entry runs on each of its
+    ranks, the model moved to the rank's device).
     ``train_batches``/``val_batches`` are callables returning fresh
-    iterators of (images, labels) numpy batches per epoch. Returns
-    {'model', 'lora', 'best_dsc', 'history'}. With ``resume`` the run
-    continues from ``dir_checkpoint/train_state.pt`` where it exists;
-    ``save_state_every`` writes it every that many epochs."""
+    iterators of (images, labels) numpy batches per epoch (the global
+    batches: every rank gets the same). Returns {'model', 'lora',
+    'best_dsc', 'history'}. With ``resume`` the run continues from
+    ``dir_checkpoint/train_state.pt`` where it exists;
+    ``save_state_every`` writes it every that many epochs. The model axis
+    holds replicas, as in the JAX package's ``train_model``."""
     from .checkpoint import load_train_state, save_checkpoint, save_train_state
 
     device = next(model.parameters()).device
     runtime = build_runtime(cfg, steps_per_epoch, device, mesh)
+    model.to(runtime.device)
+    lead = runtime.rank == 0
     init_state, train_step = make_train_step(
         model, runtime, finetune_type=cfg.finetune_type,
         if_update_encoder=cfg.if_update_encoder, heads_by_dim=heads_by_dim,
@@ -389,7 +561,9 @@ def train_model(model: nn.Module, train_batches: Callable[[], Iterable],
         state.load_state_dict(snapshot)
         logger.info("resumed from epoch %d (iter %d)", start_epoch, iter_num)
 
-    if writer is None:
+    if not lead:
+        writer = None
+    elif writer is None:
         writer = _writer(cfg)
 
     best_dsc = -1.0
@@ -425,6 +599,11 @@ def train_model(model: nn.Module, train_batches: Callable[[], Iterable],
                 n += 1
             eval_loss /= max(n, 1)
             dsc /= max(n, 1)
+            if runtime.procs is not None:
+                # every rank decides on rank 0's values: a rank that chose
+                # otherwise would miss the next collective
+                eval_loss, dsc = collectives.broadcast_values(
+                    [eval_loss, dsc], device=runtime.device)
             if writer is not None:
                 writer.add_scalar("eval/loss", eval_loss, epoch)
                 writer.add_scalar("eval/dice", dsc, epoch)
@@ -435,18 +614,30 @@ def train_model(model: nn.Module, train_batches: Callable[[], Iterable],
             if dsc > best_dsc:
                 best_dsc = dsc
                 last_update_epoch = epoch
-                save_checkpoint(cfg.dir_checkpoint, model, cfg,
-                                lora=state.lora, heads_by_dim=heads_by_dim)
+                if lead:
+                    save_checkpoint(cfg.dir_checkpoint, model, cfg,
+                                    lora=state.lora,
+                                    heads_by_dim=heads_by_dim)
             elif (epoch - last_update_epoch) > cfg.early_stop_patience:
                 logger.info("Training finished (early stop at epoch %d)",
                             epoch)
                 break
 
         if save_state_every and (epoch + 1) % save_state_every == 0:
-            save_train_state(cfg.dir_checkpoint, state.state_dict(),
-                             epoch + 1, iter_num)
+            snapshot = state.state_dict()
+            if lead:
+                save_train_state(cfg.dir_checkpoint, snapshot, epoch + 1,
+                                 iter_num)
+            if runtime.procs is not None:
+                # the ranks go on once rank 0 has written: a resume in this
+                # process group reads a whole file
+                collectives.broadcast_values([float(epoch)],
+                                             device=runtime.device)
 
     if writer is not None:
         writer.close()
+    if runtime.procs is not None:
+        # the other ranks return once rank 0 has written its files
+        collectives.broadcast_values([best_dsc], device=runtime.device)
     return {"model": model, "lora": state.lora, "best_dsc": best_dsc,
             "history": history}

@@ -112,6 +112,57 @@ PORT_ONLY = {"flow": {"process_folder"},
              "viz": {"colormap_lut", "radlong_overlay_frames"}}
 
 
+# modules of one package only: the JAX package's Pallas kernels (the port's
+# CUDA kernels and their build and bindings stand in for them) and the
+# port's process-per-rank training (XLA inserts the JAX package's
+# collectives; its mesh is single-controller)
+JAX_ONLY_MODULES = {"ops.deepflow_pallas", "ops.pallas_common",
+                    "ops.tvl1_pallas"}
+PORT_ONLY_MODULES = {"ops.cuda_lib", "ops.deepflow_kernels",
+                     "ops.tvl1_kernels", "parallel.collectives",
+                     "parallel.launch", "train.mesh_steps"}
+
+
+def _module_names(package):
+    out = set()
+    for path in (ROOT / package).rglob("*.py"):
+        parts = list(path.relative_to(ROOT / package).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.add(".".join(parts))
+    return out
+
+
+def test_module_names_match_jax():
+    """The port has every module of the JAX package, parallel/shardings
+    included, but the Pallas ones, and no module of its own beyond
+    PORT_ONLY_MODULES."""
+    j = _module_names("tee_optical_flow_tpu")
+    t = _module_names("tee_optical_flow_torch")
+    assert j - t == JAX_ONLY_MODULES
+    assert t - j == PORT_ONLY_MODULES
+    assert "parallel.shardings" in t
+
+
+def test_parallel_modules_load_no_jax():
+    """parallel/launch, parallel/collectives and parallel/shardings (and
+    the ranks' target, train/mesh_steps) in a fresh interpreter."""
+    names = ["tee_optical_flow_torch.parallel." + n
+             for n in ("launch", "collectives", "shardings")]
+    names.append("tee_optical_flow_torch.train.mesh_steps")
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def _public(module):
     """``__all__``, or for a module without one (exceptions) its public
     classes."""

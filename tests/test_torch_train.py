@@ -899,16 +899,27 @@ def test_adapter_model_loads_a_checkpoint_without_adapters(tmp_path):
                                    **build)
 
 
-def test_refusals_and_empty_trainable_sets(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_refusals_and_empty_trainable_sets(tmp_path, monkeypatch):
+    """A data axis above the devices raises ShardingError, as the JAX
+    package's make_mesh does: TrainConfig(mesh_data_axis=2) on the CPU,
+    and cli.train's --model_axis 2 or --data_axis 4 on one card (refused
+    before anything runs on it). A policy that selects no parameter
+    raises ValueError."""
+    from tee_optical_flow_torch.exceptions import ShardingError
+
+    with pytest.raises(ShardingError, match="mesh 2x1 != 1 devices"):
         t_loop.build_runtime(t_config.TrainConfig(mesh_data_axis=2), 1,
                              device="cpu")
     argv = ["--dir_checkpoint", str(tmp_path), "--img_folder", "i",
             "--mask_folder", "m", "--train_img_list", "t",
-            "--val_img_list", "v", "--device", "cpu"]
-    for extra in (["--model_axis", "2"], ["--data_axis", "4"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            t_cli_train.main(argv + extra)
+            "--val_img_list", "v"]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        for extra, msg in ((["--model_axis", "2"], "not divisible"),
+                           (["--data_axis", "4"], "mesh 4x1 != 1 devices")):
+            with pytest.raises(ShardingError, match=msg):
+                t_cli_train.main(argv + extra)
     model = t_registry.build_sam_vit_t(3, SIZE, device="cpu")
     rt = t_loop.build_runtime(t_config.TrainConfig(), 1, device="cpu")
     for policy in ("adapter", "lora"):
