@@ -683,7 +683,6 @@ def record_k3(captured, calls):
                                 for a in args], dict(kw))
         return inner(*args, **kw)
 
-    recording.__dict__ = inner.__dict__
     dk.sor_sweeps = recording
     try:
         yield
@@ -771,7 +770,6 @@ def record_tvl1(name, shapes, captured, calls, every=False):
                 captured[shape] = call
         return inner(*args, **kw)
 
-    recording.__dict__ = inner.__dict__
     setattr(tk, name, recording)
     setattr(tt, name, recording)
     try:
@@ -885,32 +883,30 @@ def phase_k1(captured, calls):
     return out
 
 
+_COUNTS_BASE = {}
+_WRAPPERS = ("tvl1_outer_loop", "tvl1_block_loop", "tvl1_inner_block",
+             "median_filter_5x5", "sor_sweeps")
+
+
 def reset_counts():
-    """Every wrapper's launch count, and the kernel library's own count of
-    device launches (cuda_lib.device_launch_count), to 0."""
-    from tee_optical_flow_torch.ops import deepflow_kernels as dk
-    from tee_optical_flow_torch.ops import tvl1_kernels as tk
-    from tee_optical_flow_torch.ops import warp as tw
+    """Every wrapper's launch count (its ``launches.<wrapper>`` counter,
+    read from here on as a difference from now), and the kernel library's
+    own count of device launches (cuda_lib.device_launch_count), to 0."""
     from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+    from tee_optical_flow_torch.utils.tracing import get_counters
 
     device_launch_count(reset=True)
-    tk.tvl1_outer_loop.launches = 0
-    tk.tvl1_block_loop.launches = 0
-    tk.tvl1_inner_block.launches = 0
-    tw.median_filter_5x5.launches = 0
-    dk.sor_sweeps.launches = 0
+    _COUNTS_BASE.clear()
+    _COUNTS_BASE.update(get_counters())
 
 
 def read_counts():
-    from tee_optical_flow_torch.ops import deepflow_kernels as dk
-    from tee_optical_flow_torch.ops import tvl1_kernels as tk
-    from tee_optical_flow_torch.ops import warp as tw
+    """Each wrapper's launches since the last ``reset_counts``."""
+    from tee_optical_flow_torch.utils.tracing import get_counters
 
-    return {"tvl1_outer_loop": tk.tvl1_outer_loop.launches,
-            "tvl1_block_loop": tk.tvl1_block_loop.launches,
-            "tvl1_inner_block": tk.tvl1_inner_block.launches,
-            "median_filter_5x5": tw.median_filter_5x5.launches,
-            "sor_sweeps": dk.sor_sweeps.launches}
+    now = get_counters()
+    return {name: now.get(f"launches.{name}", 0)
+            - _COUNTS_BASE.get(f"launches.{name}", 0) for name in _WRAPPERS}
 
 
 def check_schema(saved, n, h, w, mode="otsu"):
@@ -2981,6 +2977,83 @@ def train_mesh_check() -> int:
         out = phase_train_mesh(clip, workdir, has_h5py)
         log(f"train mesh ({time.perf_counter() - t0:.1f} s): "
             + json.dumps(out))
+    return 0
+
+
+def span_breakdown(sizes=((480, 640), (600, 800)), clips=4) -> int:
+    """Where an Otsu TV-L1 clip's time goes, read from the program's spans
+    (utils/tracing): per size, a warm-up clip, then ``clips`` echo clips
+    of CLIP_FRAMES frames, each written as a DICOM and run through
+    process_video in turn. Logs one JSON line per size: each span name's
+    total and self seconds and calls per clip, the solver's warp and loop
+    seconds per pyramid level, the counters per clip, and the share of
+    each clip (host clock, synchronised before and after) that its
+    top-level spans cover.
+
+        python3 -c "import chip_smoke, sys;
+            sys.exit(chip_smoke.span_breakdown())"
+    """
+    import torch
+
+    from tee_optical_flow_torch.config import default_optical_flow_config
+    from tee_optical_flow_torch.flow import pipeline
+    from tee_optical_flow_torch.io.dicom_write import write_dicom_clip
+    from tee_optical_flow_torch.utils import tracing
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    cfg = default_optical_flow_config()
+    for h, w in sizes:
+        with tempfile.TemporaryDirectory() as workdir:
+            paths = []
+            for k in range(clips + 1):
+                paths.append(os.path.join(workdir, f"clip{k}.dcm"))
+                frames = echo_clip(CLIP_FRAMES, h, w, seed=k)[0]
+                write_dicom_clip(paths[-1],
+                                 np.repeat(frames[..., None], 3, axis=-1),
+                                 frame_rate=FPS, pixel_spacing=SPACING_CM)
+            walls = []
+            for k, path in enumerate(paths):
+                if k == 1:
+                    tracing.get_stage_report(reset=True)
+                    before = tracing.get_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipeline.process_video(
+                    path, "clip.hdf5", None, verbose=False, mode="otsu",
+                    no_saliency=True, OF_algo="TVL1", config=cfg,
+                    device="cuda", _save_fn=lambda *a, **kw: None)
+                torch.cuda.synchronize()
+                walls.append((t0, time.perf_counter()))
+            report = tracing.get_stage_report(reset=True)
+            after = tracing.get_counters()
+        log_spans = tracing.get_spans()
+        last = max(s["clip"] for s in log_spans if s["clip"] is not None)
+        ids = list(range(last - clips + 1, last + 1))
+        cover = [round(tracing._covered(
+            [(s["start"], s["end"]) for s in log_spans
+             if s["clip"] == cid and s["parent"] is None], t0, t1)
+            / (t1 - t0), 4) for cid, (t0, t1) in zip(ids, walls[1:])]
+        levels = {}
+        for s in log_spans:
+            if s["clip"] in ids and s["name"] in ("tvl1_warp", "tvl1_loop"):
+                per = levels.setdefault(s["attrs"]["level"], {})
+                per[s["name"]] = per.get(s["name"], 0.0) + (
+                    s["end"] - s["start"]) / clips
+        out = {"size": [h, w], "clips": clips,
+               "clip_s": sum(t1 - t0 for t0, t1 in walls[1:]) / clips,
+               "top_level_cover": cover,
+               "stages": {name: {"total_s": v["total_s"] / clips,
+                                 "self_s": v["self_s"] / clips,
+                                 "calls": v["calls"] / clips}
+                          for name, v in report.items()},
+               "levels": dict(sorted(levels.items())),
+               "counters": {k: (v - before.get(k, 0)) / clips
+                            for k, v in after.items()
+                            if v != before.get(k, 0)}}
+        log(f"spans {h}x{w}: " + json.dumps(out))
     return 0
 
 

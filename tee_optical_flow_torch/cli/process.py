@@ -189,6 +189,7 @@ def main(argv=None, *, _save_fn=None) -> int:
     from ..core import enable_compilation_cache, resolve_device
     from ..flow.pipeline import process_folder
     from ..utils import get_stage_report
+    from ..utils.tracing import get_counters
 
     device = resolve_device(args.device)
     cache_dir = args.compilation_cache_dir
@@ -230,8 +231,9 @@ def main(argv=None, *, _save_fn=None) -> int:
 
     report = get_stage_report()
     if report:
-        logger.info("stage timings: %s",
-                    {k: round(v["total_s"], 2) for k, v in report.items()})
+        logger.info("stage timings (total, self s): %s; counters: %s",
+                    {k: (round(v["total_s"], 2), round(v["self_s"], 2))
+                     for k, v in report.items()}, get_counters())
     if all_errors:
         logger.warning("%d files failed", len(all_errors))
     return 1 if all_errors else 0

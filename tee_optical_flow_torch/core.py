@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .utils.helpers import pad_to_multiple
+from .utils.tracing import count_sync
 
 __all__ = [
     "as_device_tensor", "bucketed_frame_count", "bucketed_spatial",
@@ -86,7 +87,10 @@ def as_device_tensor(x, device=None) -> torch.Tensor:
         return x
     dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            count_sync(dev)  # a pageable upload waits on the card
         return x.to(dev)
+    count_sync(dev)
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 

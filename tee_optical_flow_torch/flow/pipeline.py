@@ -49,7 +49,7 @@ from ..ops.imaging import gray_from_clip, img2uint8
 from ..ops.morphology import unpack_mask_bits
 from ..ops.saliency import fine_grained_saliency
 from ..ops.tvl1 import tvl1_clip_flow, tvl1_config_kwargs, tvl1_flow_pairs
-from ..utils import safe_makedir, trace_stage
+from ..utils import safe_makedir, trace_stage, tracing
 from .segment import (
     clean_mask_device, masks_to_host, predict_movie_thres, segment_labels,
 )
@@ -267,121 +267,132 @@ def process_video(dcm_path: str, save_path: str,
             f"Input for mode must be [A4C, otsu, RVIO_2class, MouseRV_A4C], "
             f"not {mode}.")
 
-    # --- read + metadata (host) ---
-    with trace_stage("dicom_read"):
-        if _clip_override is not None:
-            nparr = np.asarray(_clip_override)
-            ds = None
-            metadata = dict(_metadata_override or {
-                "pixel_spacing": None, "frame_rate": None,
-                "R_times": None, "R_wave_data_present": False})
+    with tracing.clip(dev):
+        # --- read + metadata (host) ---
+        with trace_stage("dicom_read"):
+            if _clip_override is not None:
+                nparr = np.asarray(_clip_override)
+                ds = None
+                metadata = dict(_metadata_override or {
+                    "pixel_spacing": None, "frame_rate": None,
+                    "R_times": None, "R_wave_data_present": False})
+            else:
+                ds, nparr = read_dicom_clip(dcm_path)
+                metadata = extract_metadata(ds, verbose)
+
+        pixel_spacing = metadata.get("pixel_spacing")
+        frame_rate = metadata.get("frame_rate")
+        conversion_factor = (1.0 if pixel_spacing is None
+                             or frame_rate is None
+                             else pixel_spacing * frame_rate)
+        nframes = nparr.shape[0]
+        if verbose:
+            logger.info("Pixel data obtained, of shape: %s", nparr.shape)
+
+        with trace_stage("clip_prep"):
+            if flipLR:
+                nparr = np.flip(nparr, axis=2)
+            # frame-axis bucketing (core.py): last-frame repeats are exact
+            # for every real frame's masks and flow; sliced off below
+            if config.bucket_shapes and config.frame_bucket > 1:
+                nparr = pad_clip_frames(
+                    nparr, bucketed_frame_count(nframes, config.frame_bucket))
+
+            # --- one device copy feeds segmentation AND flow. Echo DICOMs
+            # are RGB-coded grayscale almost always: when R==G==B, send a
+            # single channel (luma of R=G=B is the channel; the segmentor
+            # resizes it before broadcasting it to three) ---
+            is_gray = (nparr.ndim == 4 and nparr.shape[-1] == 3
+                       and np.array_equal(nparr[..., 0], nparr[..., 1])
+                       and np.array_equal(nparr[..., 0], nparr[..., 2]))
+            clip = np.ascontiguousarray(nparr[..., 0] if is_gray else nparr)
+            clip_dev = torch.from_numpy(clip).to(dev)  # pageable: waits
+            tracing.count_sync(dev)
+            gray = gray_from_clip(clip_dev)  # shared by masks and flow prep
+
+        # --- masks (device, batched) ---
+        with trace_stage("segmentation"):
+            if mode in _SEGMENTOR_MODES:
+                # predict_movie's halves, keeping the device masks for WASE
+                labels, label_dev = segment_labels(nparr, segmentor_model,
+                                                   _clip_dev=clip_dev)
+                masks_dev = clean_mask_device(labels, mode, config=config,
+                                              device=label_dev)
+                mask_dict = masks_to_host(masks_dev, verbose)
+                bkgd_dev = masks_dev["bkgd"][:nframes]
+            else:
+                mask_dict = predict_movie_thres(nparr, verbose=verbose,
+                                                config=config, _gray_dev=gray)
+            if nparr.shape[0] != nframes:  # drop frame-bucket padding
+                mask_dict = {k: v[:nframes] for k, v in mask_dict.items()}
+
+        # --- flow input prep: per-frame img2uint8 (reference :586-588) or
+        # the fine-grained saliency map ---
+        with trace_stage("flow_input_prep"):
+            images = (img2uint8(gray) if no_saliency
+                      else fine_grained_saliency(gray))
+
+        # --- flow (device, all pairs at once) ---
+        with trace_stage("optical_flow"):
+            # padded (last, last) pairs solve to zero flow; slice them (and
+            # the padded echo frames) off before WASE sees the arrays
+            flow_pairs = compute_clip_flow(images, OF_algo,
+                                           config)[:nframes - 1]
+            gray = gray[:nframes]
+            if bkgd_comp == "WASE":
+                # the segmentor path's bkgd mask, still on the device (otsu
+                # mode refuses WASE above)
+                flow_pairs = wase_background(flow_pairs, bkgd_dev)
+            # unit conversion (:600) and the schema's float16 on the device:
+            # half the bytes cross to the host
+            cf = torch.tensor(conversion_factor, dtype=torch.float32,
+                              device=dev)
+            flow_host = (flow_pairs * cf).to(torch.float16).cpu().numpy()
+            echo_gray = gray.to(torch.float16).cpu().numpy()
+            # the upload of cf and the two copies wait on the card; the
+            # last leaves it idle, which ties its span events to the clock
+            tracing.count_sync(dev, 3)
+            tracing.anchor(dev)
+
+        # --- waveforms (host) ---
+        waveform_results: Dict = {}
+        if include_waveforms:
+            with trace_stage("waveforms"):
+                waveform_results = load_all_waveforms(
+                    dcm_path, waveform_folder, config, verbose)
+            ecg_exists = waveform_results.get("ecg", (False, None))[0]
+            art_exists = waveform_results.get("art", (False, None))[0]
+            if not ecg_exists and not art_exists:
+                include_waveforms = False
+
+        # --- persist (host) ---
+        patient_id = ""
+        heart_rate = 0
+        if ds is not None:
+            patient_id = str(ds.get((0x0010, 0x0020), "") or "")
+            hr = ds.get((0x0018, 0x1088))
+            heart_rate = hr if hr is not None else 0
+
+        def _write() -> None:
+            # duplicate last flow frame to clip length (:599)
+            flow_arr = np.concatenate([flow_host, flow_host[-1:]], axis=0)
+            _save_fn(
+                save_path, flow_arr, echo_gray, mask_dict,
+                {**metadata, "nframes": nframes},
+                waveform_results, mode=mode, no_saliency=no_saliency,
+                include_waveforms=include_waveforms, patient_id=patient_id,
+                heart_rate=heart_rate,
+                sampling_rates={"ecg": config.ecg_sampling_rate,
+                                "art": config.art_sampling_rate,
+                                "cvp": config.cvp_sampling_rate,
+                                "pap": config.pap_sampling_rate},
+                save_mask_subset=save_mask_subset, verbose=verbose)
+
+        if _writer is not None:
+            _writer.submit(dcm_path, _write)
         else:
-            ds, nparr = read_dicom_clip(dcm_path)
-            metadata = extract_metadata(ds, verbose)
-
-    pixel_spacing = metadata.get("pixel_spacing")
-    frame_rate = metadata.get("frame_rate")
-    conversion_factor = (1.0 if pixel_spacing is None or frame_rate is None
-                         else pixel_spacing * frame_rate)
-    if flipLR:
-        nparr = np.flip(nparr, axis=2)
-    nframes = nparr.shape[0]
-    if verbose:
-        logger.info("Pixel data obtained, of shape: %s", nparr.shape)
-
-    # frame-axis bucketing (core.py): last-frame repeats are exact for
-    # every real frame's masks and flow; sliced off below
-    if config.bucket_shapes and config.frame_bucket > 1:
-        nparr = pad_clip_frames(
-            nparr, bucketed_frame_count(nframes, config.frame_bucket))
-
-    # --- one device copy feeds segmentation AND flow. Echo DICOMs are
-    # RGB-coded grayscale almost always: when R==G==B, send a single
-    # channel (luma of R=G=B is the channel; the segmentor resizes it
-    # before broadcasting it to three) ---
-    is_gray = (nparr.ndim == 4 and nparr.shape[-1] == 3
-               and np.array_equal(nparr[..., 0], nparr[..., 1])
-               and np.array_equal(nparr[..., 0], nparr[..., 2]))
-    clip = np.ascontiguousarray(nparr[..., 0] if is_gray else nparr)
-    clip_dev = torch.from_numpy(clip).to(dev)
-    gray = gray_from_clip(clip_dev)  # shared by otsu masks and flow prep
-
-    # --- masks (device, batched) ---
-    with trace_stage("segmentation"):
-        if mode in _SEGMENTOR_MODES:
-            # predict_movie's halves, keeping the device masks for WASE
-            labels, label_dev = segment_labels(nparr, segmentor_model,
-                                               _clip_dev=clip_dev)
-            masks_dev = clean_mask_device(labels, mode, config=config,
-                                          device=label_dev)
-            mask_dict = masks_to_host(masks_dev, verbose)
-            bkgd_dev = masks_dev["bkgd"][:nframes]
-        else:
-            mask_dict = predict_movie_thres(nparr, verbose=verbose,
-                                            config=config, _gray_dev=gray)
-        if nparr.shape[0] != nframes:  # drop frame-bucket padding
-            mask_dict = {k: v[:nframes] for k, v in mask_dict.items()}
-
-    # --- flow input prep: per-frame img2uint8 (reference :586-588) or
-    # the fine-grained saliency map ---
-    with trace_stage("flow_input_prep"):
-        images = img2uint8(gray) if no_saliency else fine_grained_saliency(gray)
-
-    # --- flow (device, all pairs at once) ---
-    with trace_stage("optical_flow"):
-        # padded (last, last) pairs solve to zero flow; slice them (and
-        # the padded echo frames) off before WASE sees the arrays
-        flow_pairs = compute_clip_flow(images, OF_algo, config)[:nframes - 1]
-        gray = gray[:nframes]
-        if bkgd_comp == "WASE":
-            # the segmentor path's bkgd mask, still on the device (otsu
-            # mode refuses WASE above)
-            flow_pairs = wase_background(flow_pairs, bkgd_dev)
-        # unit conversion (:600) and the schema's float16 on the device:
-        # half the bytes cross to the host
-        cf = torch.tensor(conversion_factor, dtype=torch.float32, device=dev)
-        flow_host = (flow_pairs * cf).to(torch.float16).cpu().numpy()
-        echo_gray = gray.to(torch.float16).cpu().numpy()
-
-    # --- waveforms (host) ---
-    waveform_results: Dict = {}
-    if include_waveforms:
-        with trace_stage("waveforms"):
-            waveform_results = load_all_waveforms(
-                dcm_path, waveform_folder, config, verbose)
-        ecg_exists = waveform_results.get("ecg", (False, None))[0]
-        art_exists = waveform_results.get("art", (False, None))[0]
-        if not ecg_exists and not art_exists:
-            include_waveforms = False
-
-    # --- persist (host) ---
-    patient_id = ""
-    heart_rate = 0
-    if ds is not None:
-        patient_id = str(ds.get((0x0010, 0x0020), "") or "")
-        hr = ds.get((0x0018, 0x1088))
-        heart_rate = hr if hr is not None else 0
-
-    def _write() -> None:
-        # duplicate last flow frame to clip length (:599)
-        flow_arr = np.concatenate([flow_host, flow_host[-1:]], axis=0)
-        _save_fn(
-            save_path, flow_arr, echo_gray, mask_dict,
-            {**metadata, "nframes": nframes},
-            waveform_results, mode=mode, no_saliency=no_saliency,
-            include_waveforms=include_waveforms, patient_id=patient_id,
-            heart_rate=heart_rate,
-            sampling_rates={"ecg": config.ecg_sampling_rate,
-                            "art": config.art_sampling_rate,
-                            "cvp": config.cvp_sampling_rate,
-                            "pap": config.pap_sampling_rate},
-            save_mask_subset=save_mask_subset, verbose=verbose)
-
-    if _writer is not None:
-        _writer.submit(dcm_path, _write)
-    else:
-        with trace_stage("hdf5_write"):
-            _write()
+            with trace_stage("hdf5_write"):
+                _write()
 
 
 def process_folder(dcm_dir: str, save_dir: str,

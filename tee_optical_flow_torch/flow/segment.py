@@ -31,6 +31,7 @@ from ..ops.morphology import (
     clean_binary_stack, moving_avg_mask, pack_mask_bits, unpack_mask_bits,
 )
 from ..ops.otsu import otsu_mask_stack
+from ..utils.tracing import count_sync, trace_stage
 
 logger = logging.getLogger(__name__)
 
@@ -78,12 +79,13 @@ def masks_to_host(masks: Dict[str, torch.Tensor], verbose: bool = False
     each mask crosses bit-packed and is broadcast to two channels, so that
     it multiplies the flow directly."""
     mask_dict: Dict[str, np.ndarray] = {}
-    for name, mask in masks.items():
-        host = unpack_mask_bits(pack_mask_bits(mask), tuple(mask.shape))
-        mask_dict[name] = np.repeat(host[:, :, :, None], 2, axis=3)
-        if verbose and name != "bkgd":
-            logger.debug("For mask %s, produced cleaned mask arr of shape %s",
-                         name, mask_dict[name].shape)
+    with trace_stage("masks_to_host"):
+        for name, mask in masks.items():
+            host = unpack_mask_bits(pack_mask_bits(mask), tuple(mask.shape))
+            mask_dict[name] = np.repeat(host[:, :, :, None], 2, axis=3)
+            if verbose and name != "bkgd":
+                logger.debug("For mask %s, produced cleaned mask arr of "
+                             "shape %s", name, mask_dict[name].shape)
     return mask_dict
 
 
@@ -115,14 +117,17 @@ def predict_movie_thres(nparr: np.ndarray, verbose: bool = False,
     if _gray_dev is not None:
         gray = _gray_dev
     else:
+        dev = resolve_device(device)
         clip = torch.from_numpy(np.ascontiguousarray(nparr))
-        gray = rgb2gray(clip.to(resolve_device(device)))
+        gray = rgb2gray(clip.to(dev))
+        count_sync(dev)
     raw = otsu_mask_stack(gray)
     clean = clean_binary_stack(raw, min_size=config.min_mask_size)
     avg_dev = moving_avg_mask(clean, n=config.moving_avg_window,
                               threshold=config.moving_avg_threshold)
-    avg = unpack_mask_bits(pack_mask_bits(avg_dev), tuple(avg_dev.shape))
-    return {"otsu": np.repeat(avg[:, :, :, None], 2, axis=3)}
+    with trace_stage("masks_to_host"):
+        avg = unpack_mask_bits(pack_mask_bits(avg_dev), tuple(avg_dev.shape))
+        return {"otsu": np.repeat(avg[:, :, :, None], 2, axis=3)}
 
 
 def segment_labels(nparr: np.ndarray, segmentor: Callable[[np.ndarray],
@@ -140,8 +145,10 @@ def segment_labels(nparr: np.ndarray, segmentor: Callable[[np.ndarray],
     device_fn = getattr(segmentor, "labels_device", None)
     if device_fn is not None and _clip_dev is not None:
         h, w = np.asarray(nparr).shape[1:3]
-        return device_fn(_clip_dev, (h, w)), device
-    labels = np.asarray(segmentor(np.asarray(nparr)))
+        with trace_stage("segmentor"):
+            return device_fn(_clip_dev, (h, w)), device
+    with trace_stage("segmentor"):
+        labels = np.asarray(segmentor(np.asarray(nparr)))
     if _clip_dev is not None:
         device = _clip_dev.device
     return labels, device

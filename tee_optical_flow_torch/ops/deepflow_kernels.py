@@ -13,7 +13,7 @@ On a CUDA tensor the wrapper makes one call of ``deepflow_solve``
 current stream, with a work buffer where the size rule
 (``deepflow_resident``) sends the level to the tiled route; on a CPU
 tensor it runs the plain version. It never falls
-back. It counts its calls in ``sor_sweeps.launches``. The kernels'
+back. It counts its calls in the ``launches.sor_sweeps`` counter. The kernels'
 design, and what bounds them, is in the source's head note.
 
 The wrapper returns new tensors (du, dv) and leaves its inputs untouched,
@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.tracing import count
 from .cuda_lib import (
     check_inputs, check_launch, launch_context, load_library, ptr,
 )
@@ -112,7 +113,8 @@ def sor_sweeps(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
                delta, gamma, beta=0.0):
     """K3: the fixed-point solve for (du, dv) on (B, H, W) float32 inputs
     (see ``sor_sweeps_plain``). CUDA kernels on card tensors, the plain
-    version on CPU tensors. Counts its calls in ``sor_sweeps.launches``."""
+    version on CPU tensors. Counts its calls in the ``launches.sor_sweeps``
+    counter."""
     inputs = (i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
               *(match or ()))
     kw = dict(psi_iters=psi_iters, sor_iters=sor_iters, omega=omega,
@@ -123,7 +125,7 @@ def sor_sweeps(i1wx, i1wy, i1wxx, i1wxy, i1wyy, it, itx, ity, u0, v0,
     if match is not None and len(match) != 3:
         raise ValueError("match must be an (um, vm, conf) triple")
     du, dv = solve(load_library(), inputs[:10], match, **kw)
-    sor_sweeps.launches += 1
+    count("launches.sor_sweeps")
     return du, dv
 
 
@@ -156,6 +158,3 @@ def solve(lib: ctypes.CDLL, planes, match: Match, *, psi_iters, sor_iters,
             ctypes.c_float(alpha), ctypes.c_float(delta),
             ctypes.c_float(gamma), ctypes.c_float(beta), stream))
     return du, dv
-
-
-sor_sweeps.launches = 0

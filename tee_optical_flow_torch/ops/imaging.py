@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import count_sync
 from .warp import _resize
 
 # ITU-R BT.601 luma weights, matching skimage.color.rgb2gray
@@ -29,6 +30,7 @@ def rgb2gray(frames: torch.Tensor) -> torch.Tensor:
         frames = frames.to(torch.float32) / 255.0
     else:
         frames = frames.to(torch.float32)
+    count_sync(frames.device)  # the weights' pageable upload waits
     return frames @ torch.from_numpy(_LUMA).to(frames.device)
 
 
@@ -61,6 +63,7 @@ def normalize_imagenet(frames: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) in [0, 1] -> ImageNet-normalised."""
     mean = torch.from_numpy(IMAGENET_MEAN).to(frames.device)
     std = torch.from_numpy(IMAGENET_STD).to(frames.device)
+    count_sync(frames.device, 2)  # two pageable uploads
     return (frames - mean) / std
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import count, count_sync, trace_stage
+
 
 def _neighbor_min(ids: torch.Tensor, big: int, connectivity: int
                   ) -> torch.Tensor:
@@ -58,11 +60,15 @@ def connected_components(mask: torch.Tensor, connectivity: int = 2
         mask = mask[None]
     _, h, w = mask.shape
     big = h * w
-    lin = torch.arange(big, dtype=torch.int32,
-                       device=mask.device).reshape(1, h, w)
-    ids = torch.where(mask, lin, big)
-    for _ in range(2 * (h + w)):
-        ids = torch.where(mask, _neighbor_min(ids, big, connectivity), big)
+    rounds = 2 * (h + w)
+    with trace_stage("labelling"):
+        lin = torch.arange(big, dtype=torch.int32,
+                           device=mask.device).reshape(1, h, w)
+        ids = torch.where(mask, lin, big)
+        for _ in range(rounds):
+            ids = torch.where(mask, _neighbor_min(ids, big, connectivity),
+                              big)
+    count("labelling_rounds", rounds)
     return ids[0] if squeeze else ids
 
 
@@ -234,13 +240,15 @@ def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8,
-                           device=flat.device)
+                           device=flat.device)  # pageable upload: waits
+    count_sync(flat.device)
     return (flat.reshape(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)
 
 
 def unpack_mask_bits(packed, shape) -> np.ndarray:
     """Host-side inverse of :func:`pack_mask_bits` -> bool ndarray."""
     if isinstance(packed, torch.Tensor):
+        count_sync(packed.device)
         packed = packed.cpu().numpy()
     flat = np.unpackbits(np.asarray(packed), count=int(np.prod(shape)))
     return flat.astype(bool).reshape(shape)

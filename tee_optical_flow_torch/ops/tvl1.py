@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core import as_device_tensor, pad_to_multiple
+from ..utils.tracing import count_sync, trace_stage
 from .tvl1_kernels import (
     _GRAD_EPS, _threshold, tvl1_block_loop, tvl1_outer_loop,
 )
@@ -100,7 +101,7 @@ def _gamma_step(consts, u, v, w, p11, p12, p21, p22, p31, p32, *, gamma,
 
 def _tvl1_scale_gamma(i0, i1, u, v, w, *, lam, tau, theta, gamma, warps,
                       outer_iters, inner_iters, use_median, max_disp,
-                      epsilon=0.0, warp_kernel="bilinear"):
+                      epsilon=0.0, warp_kernel="bilinear", level=None):
     """One pyramid level of the gamma-extended solver (the JAX package's
     ``_tvl1_scale_gamma``, ops/tvl1.py:236-348): a third primal field w
     models additive illumination change, the residual gains gamma*w, the
@@ -114,7 +115,8 @@ def _tvl1_scale_gamma(i0, i1, u, v, w, *, lam, tau, theta, gamma, warps,
     outer iteration into the next. Here the inner loop runs its full count
     (a frozen pair stays bit-still, so the state equals the while-loop's)
     and the outer loop ends once no pair is active: one host check per
-    outer iteration, not one per step."""
+    outer iteration, not one per step. ``level`` is the pyramid level,
+    an attribute of the warp's ``tvl1_warp`` and ``tvl1_loop`` spans."""
     b, h, w_ = u.shape
     i1x, i1y = centered_gradient(i1)
     l_t = lam * theta
@@ -124,59 +126,65 @@ def _tvl1_scale_gamma(i0, i1, u, v, w, *, lam, tau, theta, gamma, warps,
     ps = (torch.zeros_like(u),) * 6  # p11, p12, p21, p22, p31, p32
 
     for _ in range(warps):
-        i1w, i1wx, i1wy = _warp_level(i1, i1x, i1y, u, v, max_disp,
-                                      warp_kernel)
-        grad = i1wx * i1wx + i1wy * i1wy + gamma * gamma
-        rho_c = i1w - i1wx * u - i1wy * v - i0
-        th = l_t * grad
-        inv_grad = torch.where(grad > _GRAD_EPS,
-                               1.0 / torch.clamp_min(grad, _GRAD_EPS),
-                               torch.zeros_like(grad))
-        consts = (rho_c, i1wx, i1wy, th, inv_grad, l_t * i1wx, l_t * i1wy,
-                  l_t * gamma)
-        state = (u, v, w, *ps)
-        if thresh is None:
-            for _ in range(outer_iters):
-                uu, vv, *rest = state
-                if use_median:
-                    uu, vv = median_filter_5x5(uu), median_filter_5x5(vv)
-                state = (uu, vv, *rest)
-                for _ in range(inner_iters):
-                    state = _gamma_step(consts, *state, **kw)
-        else:
-            err = torch.full((b,), float("inf"), dtype=torch.float32,
-                             device=u.device)
-            for _ in range(outer_iters):
-                act = err > thresh
-                if not bool(act.any()):
-                    break
-                if use_median:
-                    m = act[:, None, None]
+        with trace_stage("tvl1_warp", level=level):
+            i1w, i1wx, i1wy = _warp_level(i1, i1x, i1y, u, v, max_disp,
+                                          warp_kernel)
+            grad = i1wx * i1wx + i1wy * i1wy + gamma * gamma
+            rho_c = i1w - i1wx * u - i1wy * v - i0
+            th = l_t * grad
+            inv_grad = torch.where(grad > _GRAD_EPS,
+                                   1.0 / torch.clamp_min(grad, _GRAD_EPS),
+                                   torch.zeros_like(grad))
+            consts = (rho_c, i1wx, i1wy, th, inv_grad, l_t * i1wx, l_t * i1wy,
+                      l_t * gamma)
+            state = (u, v, w, *ps)
+        with trace_stage("tvl1_loop", level=level):
+            if thresh is None:
+                for _ in range(outer_iters):
                     uu, vv, *rest = state
-                    state = (torch.where(m, median_filter_5x5(uu), uu),
-                             torch.where(m, median_filter_5x5(vv), vv),
-                             *rest)
-                for _ in range(inner_iters):
+                    if use_median:
+                        uu, vv = median_filter_5x5(uu), median_filter_5x5(vv)
+                    state = (uu, vv, *rest)
+                    for _ in range(inner_iters):
+                        state = _gamma_step(consts, *state, **kw)
+            else:
+                err = torch.full((b,), float("inf"), dtype=torch.float32,
+                                 device=u.device)
+                for _ in range(outer_iters):
                     act = err > thresh
-                    new = _gamma_step(consts, *state, **kw)
-                    derr = torch.sum((new[0] - state[0]) ** 2
-                                     + (new[1] - state[1]) ** 2, dim=(1, 2))
-                    err = torch.where(act, derr, err)
-                    m = act[:, None, None]
-                    state = tuple(torch.where(m, a, c)
-                                  for a, c in zip(new, state))
+                    count_sync(act.device)
+                    if not bool(act.any()):
+                        break
+                    if use_median:
+                        m = act[:, None, None]
+                        uu, vv, *rest = state
+                        state = (torch.where(m, median_filter_5x5(uu), uu),
+                                 torch.where(m, median_filter_5x5(vv), vv),
+                                 *rest)
+                    for _ in range(inner_iters):
+                        act = err > thresh
+                        new = _gamma_step(consts, *state, **kw)
+                        derr = torch.sum((new[0] - state[0]) ** 2
+                                         + (new[1] - state[1]) ** 2,
+                                         dim=(1, 2))
+                        err = torch.where(act, derr, err)
+                        m = act[:, None, None]
+                        state = tuple(torch.where(m, a, c)
+                                      for a, c in zip(new, state))
         u, v, w, *ps = state
     return u, v, w
 
 
 def _tvl1_scale(i0, i1, u, v, *, lam, tau, theta, warps, outer_iters,
                 inner_iters, use_median, max_disp, use_pallas=False,
-                epsilon=0.0, warp_kernel="bilinear"):
+                epsilon=0.0, warp_kernel="bilinear", level=None):
     """Run the primal-dual solver at one pyramid level. All (B, H, W).
 
     ``use_pallas`` selects the TPU reference's per-size rule
     (``per_iteration_stop``); without it every size takes K1's rule, as
-    the JAX package's XLA path does."""
+    the JAX package's XLA path does. Each warp is two spans, ``tvl1_warp``
+    (the warp and the residual terms) and ``tvl1_loop`` (the loop's
+    call), with ``level`` as their attribute."""
     i1x, i1y = centered_gradient(i1)
     l_t = lam * theta
     taut = tau / theta
@@ -184,18 +192,19 @@ def _tvl1_scale(i0, i1, u, v, *, lam, tau, theta, warps, outer_iters,
     p11, p12, p21, p22 = zeros, zeros, zeros, zeros
     k1 = per_iteration_stop(i0.shape[1], i0.shape[2]) if use_pallas else True
 
+    loop = tvl1_outer_loop if k1 else tvl1_block_loop
     for _ in range(warps):
-        i1w, i1wx, i1wy = _warp_level(i1, i1x, i1y, u, v, max_disp,
-                                      warp_kernel)
-        grad = i1wx * i1wx + i1wy * i1wy
-        rho_c = i1w - i1wx * u - i1wy * v - i0
-
-        loop = tvl1_outer_loop if k1 else tvl1_block_loop
-        u, v, p11, p12, p21, p22 = loop(
-            rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22,
-            outer_iters=outer_iters, inner_iters=inner_iters,
-            use_median=use_median, l_t=l_t, theta=theta, taut=taut,
-            epsilon=epsilon)
+        with trace_stage("tvl1_warp", level=level):
+            i1w, i1wx, i1wy = _warp_level(i1, i1x, i1y, u, v, max_disp,
+                                          warp_kernel)
+            grad = i1wx * i1wx + i1wy * i1wy
+            rho_c = i1w - i1wx * u - i1wy * v - i0
+        with trace_stage("tvl1_loop", level=level):
+            u, v, p11, p12, p21, p22 = loop(
+                rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22,
+                outer_iters=outer_iters, inner_iters=inner_iters,
+                use_median=use_median, l_t=l_t, theta=theta, taut=taut,
+                epsilon=epsilon)
     return u, v
 
 
@@ -238,11 +247,12 @@ def tvl1_flow_pairs(i0: torch.Tensor, i1: torch.Tensor, *,
         lvl_disp = max(3, int(round(max_disp * (zoom ** lvl))) + 1)
         if gamma > 0.0:
             u, v, w = _tvl1_scale_gamma(pyr0[lvl], pyr1[lvl], u, v, w,
-                                        gamma=gamma, max_disp=lvl_disp, **kw)
+                                        gamma=gamma, max_disp=lvl_disp,
+                                        level=lvl, **kw)
         else:
             u, v = _tvl1_scale(pyr0[lvl], pyr1[lvl], u, v,
                                max_disp=lvl_disp, use_pallas=use_pallas,
-                               **kw)
+                               level=lvl, **kw)
         if lvl > 0:
             nh, nw = shapes[lvl - 1]
             sx = nw / shapes[lvl][1]

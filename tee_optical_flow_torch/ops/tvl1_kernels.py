@@ -22,8 +22,8 @@ On a CUDA tensor a wrapper makes one call of ``csrc/tvl1.cu`` on the
 current stream (K1: one persistent cooperative launch; the block loop and
 K2 alone: a train of sweep launches issued from C); on a CPU tensor it
 runs the plain version. It never falls back. Each wrapper counts its calls
-in its ``launches`` attribute. The kernels' design, and what bounds them,
-is in the source's head note.
+in the ``launches.<wrapper>`` counter (``utils.tracing``). The kernels'
+design, and what bounds them, is in the source's head note.
 
 The wrappers return new tensors and leave their inputs untouched, as the
 JAX functions do: the state is copied once per call and ping-pongs
@@ -37,6 +37,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.tracing import count
 from .cuda_lib import (
     check_inputs, check_launch, launch_context, load_library, ptr,
 )
@@ -310,7 +311,7 @@ def tvl1_inner_block(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
     On a card tensor one call of ``csrc/tvl1.cu``'s block loop with one
     block, no median and no stop (``tvl1_block_sweeps(n_iters)`` sweep
     launches); ``tvl1_inner_block_plain`` on a CPU tensor. Counts its calls
-    in ``tvl1_inner_block.launches``."""
+    in the ``launches.tvl1_inner_block`` counter."""
     inputs = (rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22)
     if all(t.device.type == "cpu" for t in inputs):
         return tvl1_inner_block_plain(*inputs, n_iters=n_iters, l_t=l_t,
@@ -319,11 +320,8 @@ def tvl1_inner_block(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
     state = block_loop(load_library(), inputs, outer_iters=1,
                        inner_iters=n_iters, use_median=False, l_t=l_t,
                        theta=theta, taut=taut)
-    tvl1_inner_block.launches += 1
+    count("launches.tvl1_inner_block")
     return state
-
-
-tvl1_inner_block.launches = 0
 
 
 def tvl1_block_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
@@ -336,7 +334,7 @@ def tvl1_block_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
     (per block: the sweep launches, the median fused into the first, and
     with the stop a block-end launch) and never waits on the host; frozen
     pairs' launches do no work. On a CPU tensor, the plain version. Counts
-    its calls in ``tvl1_block_loop.launches``.
+    its calls in the ``launches.tvl1_block_loop`` counter.
 
     Strike decisions equal the plain version's up to the order in which
     the block delta is summed."""
@@ -348,11 +346,8 @@ def tvl1_block_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
         return tvl1_block_loop_plain(*inputs, **kw)
     check_inputs("tvl1_block_loop", inputs)
     state = block_loop(load_library(), inputs, **kw)
-    tvl1_block_loop.launches += 1
+    count("launches.tvl1_block_loop")
     return state
-
-
-tvl1_block_loop.launches = 0
 
 
 def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
@@ -363,7 +358,8 @@ def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
     cooperative launch of ``csrc/tvl1.cu``'s persistent kernel, which runs
     the medians, the steps and the epsilon stop on the device and ends
     once every pair has frozen; a refused launch raises. On a CPU tensor,
-    the plain version. Counts its calls in ``tvl1_outer_loop.launches``.
+    the plain version. Counts its calls in the ``launches.tvl1_outer_loop``
+    counter.
 
     Stop decisions equal the plain version's up to the order in which the
     error sum is reduced."""
@@ -393,8 +389,5 @@ def tvl1_outer_loop(rho_c, i1wx, i1wy, grad, u, v, p11, p12, p21, p22, *,
             int(use_median), int(epsilon > 0.0), ctypes.c_float(l_t),
             ctypes.c_float(theta), ctypes.c_float(taut),
             ctypes.c_float(epsilon * epsilon * h * w), stream))
-    tvl1_outer_loop.launches += 1
+    count("launches.tvl1_outer_loop")
     return state
-
-
-tvl1_outer_loop.launches = 0

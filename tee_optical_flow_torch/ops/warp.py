@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.helpers import pad_to_multiple
+from ..utils.tracing import count, count_sync, trace_stage
 from .cuda_lib import check_launch, launch_context, load_library, ptr
 
 
@@ -305,27 +306,33 @@ def _resize(img: torch.Tensor, h: int, w: int, method: str) -> torch.Tensor:
     a pair's flow not on the pairs solved with it
     (flow/pipeline.compute_clip_flow_sharded is bit-equal to the
     unsharded solve)."""
-    b, in_h, in_w = img.shape
-    ww = wh = None
-    if in_w != w:
-        ww = torch.from_numpy(_resize_weights(in_w, w, method)).to(img.device)
-    if in_h != h:
-        wh = torch.from_numpy(_resize_weights(in_h, h, method)).to(img.device)
+    with trace_stage("resize"):
+        b, in_h, in_w = img.shape
+        ww = wh = None
+        # the weights are pageable uploads: each waits on the card
+        if in_w != w:
+            ww = torch.from_numpy(_resize_weights(in_w, w, method)).to(
+                img.device)
+            count_sync(img.device)
+        if in_h != h:
+            wh = torch.from_numpy(_resize_weights(in_h, h, method)).to(
+                img.device)
+            count_sync(img.device)
 
-    def products(x):
-        if ww is not None:
-            x = torch.matmul(x, ww)
-        if wh is not None:
-            x = torch.matmul(wh.t(), x)
-        return x
+        def products(x):
+            if ww is not None:
+                x = torch.matmul(x, ww)
+            if wh is not None:
+                x = torch.matmul(wh.t(), x)
+            return x
 
-    if img.device.type != "cuda":
-        return products(img).contiguous()
-    pad = (-b) % RESIZE_GROUP
-    if pad:
-        img = torch.cat([img, img[-1:].expand(pad, in_h, in_w)])
-    return torch.cat([products(img[k:k + RESIZE_GROUP])
-                      for k in range(0, b + pad, RESIZE_GROUP)])[:b]
+        if img.device.type != "cuda":
+            return products(img).contiguous()
+        pad = (-b) % RESIZE_GROUP
+        if pad:
+            img = torch.cat([img, img[-1:].expand(pad, in_h, in_w)])
+        return torch.cat([products(img[k:k + RESIZE_GROUP])
+                          for k in range(0, b + pad, RESIZE_GROUP)])[:b]
 
 
 def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -424,7 +431,7 @@ def median_filter_5x5(f: torch.Tensor) -> torch.Tensor:
     which K1 and the block loop run inside their own kernels; the TV-L1
     gamma solver calls this one); on a CPU tensor it runs
     ``median_filter_5x5_plain``.
-    Counts its launches in ``median_filter_5x5.launches``."""
+    Counts its launches in the ``launches.median_filter_5x5`` counter."""
     if f.device.type == "cpu":
         return median_filter_5x5_plain(f)
     if f.device.type != "cuda" or f.dtype != torch.float32 or f.ndim != 3 or not f.is_contiguous():
@@ -437,8 +444,5 @@ def median_filter_5x5(f: torch.Tensor) -> torch.Tensor:
     with launch_context(f.device) as stream:
         check_launch("tvl1_median5x5", lib.tvl1_median5x5(
             ptr(f), ptr(out), b, h, w, stream))
-    median_filter_5x5.launches += 1
+    count("launches.median_filter_5x5")
     return out
-
-
-median_filter_5x5.launches = 0

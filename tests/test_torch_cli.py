@@ -477,8 +477,9 @@ def test_config5_cli_matches_process_video(tmp_path, monkeypatch):
 # --- tracing, the kernel build cache, HDF5 context managers ------------------
 
 def test_stage_timer_and_profiled_stage():
-    from torch.profiler import ProfilerActivity, profile
-
+    """StageTimer and trace_stage open spans of one mechanism
+    (utils/tracing): a stage inside another is its child, and the report
+    holds each stage's total, calls, mean and self time."""
     from tee_optical_flow_torch.utils import (
         StageTimer, get_stage_report, trace_stage,
     )
@@ -487,14 +488,14 @@ def test_stage_timer_and_profiled_stage():
     with StageTimer("a") as timer:
         pass
     with StageTimer("a"):
-        pass
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with trace_stage("marked", profile=True):
+        with trace_stage("marked", level=3):
             torch.ones(3).sum()
     report = get_stage_report(reset=True)
     assert list(report) == ["a", "marked"]
     assert report["a"]["calls"] == 2 and timer.elapsed >= 0
-    assert any(e.name == "marked" for e in prof.events())
+    assert report["a"]["self_s"] <= report["a"]["total_s"] - report[
+        "marked"]["total_s"] + 1e-9
+    assert set(report["marked"]) == {"total_s", "calls", "mean_s", "self_s"}
     assert get_stage_report() == {}
 
 

@@ -1,0 +1,381 @@
+"""The port's spans and counters (``tee_optical_flow_torch/utils/tracing``).
+
+On the CPU: parents, clip ids and self time of nested spans, the stage
+report, the span log's cap, the completion rule with event times injected
+through a clock of the test's own, and the spans and counters of one
+``process_video`` on a small clip.
+
+Marked ``cuda`` (they skip without a card, decided in the ``card``
+fixture): one 480x640 clip under ``torch.cuda.set_sync_debug_mode``,
+whose warnings must equal the growth of ``host_syncs``; and a labelling
+under the profiler, whose kernels must lie inside the ``labelling`` span
+that ``get_spans`` reports. On the machine with the card (no JAX there, so
+the repo's conftest cannot load):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \\
+        tests/test_torch_tracing.py -q
+"""
+
+import contextlib
+import time
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from tee_optical_flow_torch.config import (
+    OpticalFlowCalculationConfig, default_optical_flow_config,
+)
+from tee_optical_flow_torch.flow import pipeline
+from tee_optical_flow_torch.ops.morphology import connected_components
+from tee_optical_flow_torch.utils import tracing
+from tee_optical_flow_torch.utils.tracing import Tracer
+
+
+class FakeEvent:
+    def __init__(self, clock, t_dev):
+        self.clock = clock
+        self.t_dev = t_dev
+
+    def query(self):
+        return self.t_dev <= self.clock.device_now
+
+    def synchronize(self):
+        self.clock.device_now = max(self.clock.device_now, self.t_dev)
+
+    def elapsed_time(self, later):
+        assert self.query() and later.query()
+        return (later.t_dev - self.t_dev) * 1e3
+
+
+class FakeClock:
+    """Host time ``host``; each recorded event takes the next of
+    ``device_times`` (on a device clock ``offset`` seconds off the host's),
+    or, with none left, the host's time on the device clock, and has
+    completed once ``device_now`` reaches it."""
+
+    def __init__(self, offset=0.0):
+        self.host = 0.0
+        self.offset = offset
+        self.device_times = []
+        self.device_now = float("-inf")
+        self.syncs = 0
+
+    def now(self):
+        return self.host
+
+    def record(self, device):
+        if self.device_times:
+            return FakeEvent(self, self.device_times.pop(0))
+        return FakeEvent(self, self.host + self.offset)
+
+    def synchronize(self, device):
+        self.syncs += 1
+        self.device_now = float("inf")
+
+
+@contextlib.contextmanager
+def span(tracer, name, **attrs):
+    s = tracer.enter(name, attrs)
+    try:
+        yield s
+    finally:
+        tracer.exit(s)
+
+
+def _by_name(log):
+    out = {}
+    for entry in log:
+        out.setdefault(entry["name"], []).append(entry)
+    return out
+
+
+def test_nested_spans_parents_clips_and_self_time():
+    clock = FakeClock()
+    tr = Tracer(clock)
+    with tr.clip("cpu") as cid:
+        with span(tr, "outer"):
+            clock.host = 1.0
+            with span(tr, "inner", level=2):
+                clock.host = 3.0
+            clock.host = 3.5
+            with span(tr, "inner", level=1):
+                clock.host = 4.0
+            clock.host = 6.0
+    with span(tr, "after"):
+        clock.host = 7.0
+    spans = _by_name(tr.spans())
+    outer, = spans["outer"]
+    assert [s["parent"] for s in spans["inner"]] == [outer["id"]] * 2
+    assert [s["attrs"] for s in spans["inner"]] == [{"level": 2},
+                                                    {"level": 1}]
+    assert outer["parent"] is None and outer["clip"] == cid
+    assert {s["clip"] for s in spans["inner"]} == {cid}
+    assert spans["after"][0]["clip"] is None  # the clip has ended
+    report = tr.stage_report()
+    assert report["outer"]["total_s"] == 6.0
+    assert report["outer"]["self_s"] == 6.0 - 2.5
+    assert report["inner"]["calls"] == 2
+    assert report["inner"]["self_s"] == report["inner"]["total_s"] == 2.5
+    assert tr.counters() == {"clips": 1}
+    assert clock.syncs == 0  # a CPU clip records host times only
+
+
+def test_stage_report_keys_and_reset():
+    tracing.get_stage_report(reset=True)
+    with tracing.trace_stage("outer_stage"):
+        with tracing.StageTimer("inner_stage", level=0) as timer:
+            pass
+    report = tracing.get_stage_report(reset=True)
+    assert list(report) == ["outer_stage", "inner_stage"]
+    for entry in report.values():
+        assert set(entry) == {"total_s", "calls", "mean_s", "self_s"}
+        assert entry["calls"] == 1
+        assert entry["mean_s"] == entry["total_s"]
+    assert report["outer_stage"]["self_s"] <= report["outer_stage"][
+        "total_s"]
+    assert timer.elapsed >= 0
+    assert tracing.get_stage_report() == {}
+
+
+def test_span_log_cap():
+    tr = Tracer(FakeClock(), log_cap=8)
+    for k in range(20):
+        with span(tr, f"s{k}"):
+            pass
+    assert [s["name"] for s in tr.spans()] == [f"s{k}" for k in range(12, 20)]
+    assert tr.stage_report()["s0"]["calls"] == 1  # the report keeps all
+    assert tracing.SPAN_LOG_CAP == 4096
+    assert tracing._TRACER._log.maxlen == tracing.SPAN_LOG_CAP
+
+
+def test_counters_are_totals():
+    before = tracing.get_counters()
+    tracing.count("test_counter")
+    tracing.count("test_counter", 4)
+    tracing.count_sync("cpu")  # not a card: not counted
+    tracing.count_sync(torch.device("cuda", 0), 2)
+    after = tracing.get_counters()
+    assert after["test_counter"] - before.get("test_counter", 0) == 5
+    assert after["host_syncs"] - before.get("host_syncs", 0) == 2
+
+
+def test_completion_rule_with_injected_event_times():
+    """A span that enqueues 0.4 s of device work in 0.01 s of host time is
+    charged the device's 0.4 s; the host span after it starts where the
+    device reaches it, so the two tile both timelines. Events are mapped
+    through the anchor from a device clock 1,000 s off the host's; nothing
+    resolves, and nothing waits, before an anchor has completed."""
+    off = 1000.0
+    clock = FakeClock(off)
+    tr = Tracer(clock)
+    with tr.clip("cuda:0") as cid:
+        clock.device_times = [off + 0.0, off + 0.40, off + 0.40, off + 0.40]
+        with span(tr, "launch"):
+            clock.host = 0.01
+        clock.host = 0.02
+        with span(tr, "host_work"):
+            clock.host = 0.50
+        assert tr.spans() == []  # no anchor yet
+        clock.host = 0.60
+        tr.anchor("cuda:0")  # the card is idle: it runs the anchor now
+        assert tr.spans() == []  # ... but has not run it yet
+        clock.device_now = off + 0.60
+        clock.host = 0.70
+        clock.device_times = [off + 0.70, off + 0.80]
+        with span(tr, "tail"):  # after the anchor on both clocks
+            clock.host = 0.72
+        clock.host = 0.90
+        tr.anchor("cuda:0")  # not run: the first anchor maps every event
+    assert clock.syncs == 0
+    spans = _by_name(tr.spans())
+    launch, = spans["launch"]
+    host_work, = spans["host_work"]
+    assert (launch["start"], launch["end"]) == pytest.approx((0.0, 0.40))
+    assert (launch["host_start"], launch["host_end"]) == (0.0, 0.01)
+    assert (host_work["start"], host_work["end"]) == pytest.approx(
+        (0.40, 0.50))
+    assert "tail" not in spans  # its end event has not run
+    assert launch["clip"] == host_work["clip"] == cid
+    report = tr.stage_report()  # drains: waits on the card once
+    assert clock.syncs == 1
+    tail, = _by_name(tr.spans())["tail"]
+    assert (tail["start"], tail["end"]) == pytest.approx((0.70, 0.80))
+    assert report["launch"]["total_s"] == pytest.approx(0.40)
+    assert report["host_work"]["total_s"] == pytest.approx(0.10)
+
+
+def test_host_span_around_card_spans_waits_for_them():
+    """A host span opened outside the clip finishes after the card spans
+    inside it, so its self time leaves them out."""
+    clock = FakeClock(5.0)
+    tr = Tracer(clock)
+    with span(tr, "caller"):
+        with tr.clip("cuda:0"):
+            clock.device_times = [5.0, 5.3]
+            with span(tr, "card"):
+                clock.host = 0.1
+        clock.host = 1.0
+    assert "caller" not in _by_name(tr.spans())
+    report = tr.stage_report()
+    assert report["card"]["total_s"] == pytest.approx(0.3)
+    assert report["caller"]["total_s"] == 1.0
+    assert report["caller"]["self_s"] == pytest.approx(0.7)
+
+
+def _echo_clip(n, h, w, seed=0):
+    """RGB-coded grayscale frames: a bright ring on speckle that
+    contracts and expands."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    r = np.hypot(yy - h / 2, xx - w / 2)
+    frames = []
+    for k in range(n):
+        radius = min(h, w) * (0.3 + 0.03 * np.sin(2 * np.pi * k / n))
+        ring = np.exp(-((r - radius) / (0.06 * min(h, w))) ** 2) * 200
+        frames.append(np.clip(ring + rng.uniform(0, 40, (h, w)), 0, 255))
+    return np.repeat(np.asarray(frames, np.uint8)[..., None], 3, axis=-1)
+
+
+def _run_clip(clip, config, device):
+    saved = {}
+
+    def keep(save_path, flow, echo, masks, *args, **kw):
+        saved.update(flow=flow, masks=masks)
+
+    pipeline.process_video(
+        "mem.dcm", "mem.hdf5", None, verbose=False, mode="otsu",
+        no_saliency=True, OF_algo="TVL1", config=config, device=device,
+        _clip_override=clip, _save_fn=keep)
+    return saved
+
+
+def test_process_video_spans_and_counters_on_cpu():
+    n, h, w = 8, 40, 56
+    config = OpticalFlowCalculationConfig(
+        min_mask_size=50, tvl1_nscales=3, tvl1_zoom_factor=0.5,
+        tvl1_warps=3, tvl1_outer_iterations=2, tvl1_inner_iterations=5)
+    before = tracing.get_counters()
+    saved = _run_clip(_echo_clip(n, h, w), config, "cpu")
+    counters = tracing.get_counters()
+    assert saved["flow"].shape == (n, h, w, 2)
+
+    def grew(name):
+        return counters.get(name, 0) - before.get(name, 0)
+
+    assert grew("clips") == 1
+    assert grew("labelling_rounds") == 2 * 2 * (h + w)
+    assert grew("host_syncs") == 0  # the CPU never waits on a card
+    log = tracing.get_spans()
+    cid = max(s["clip"] for s in log if s["clip"] is not None)
+    mine = [s for s in log if s["clip"] == cid]
+    by_id = {s["id"]: s for s in mine}
+
+    def top(s):
+        while s["parent"] in by_id:
+            s = by_id[s["parent"]]
+        return s["name"]
+
+    spans = _by_name(mine)
+    assert [top(s) for s in spans["labelling"]] == ["segmentation"] * 2
+    assert [top(s) for s in spans["masks_to_host"]] == ["segmentation"]
+    for name in ("tvl1_warp", "tvl1_loop", "resize"):
+        assert {top(s) for s in spans[name]} == {"optical_flow"}, name
+    for name in ("tvl1_warp", "tvl1_loop"):
+        levels = [s["attrs"]["level"] for s in spans[name]]
+        assert levels == [2] * 3 + [1] * 3 + [0] * 3, name
+    # the pyramid: two resizes per image; the upsampling: two per field
+    assert len(spans["resize"]) == 2 * 2 + 2 * 2
+    for name in ("dicom_read", "clip_prep", "segmentation",
+                 "flow_input_prep", "optical_flow", "hdf5_write"):
+        entry, = spans[name]
+        assert entry["parent"] is None and entry["end"] >= entry["start"]
+
+
+# --- on the card -------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the clip path's device spans)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# Host waits of one 33x480x640 Otsu TV-L1 clip under the production
+# config: the clip's upload, the mask packing's weights and the packed
+# masks' copy, the resize weights (2 axes x 4 pyramid levels x 2 images,
+# 2 axes x 4 upsamplings x (u, v)), the conversion factor's upload and
+# the copies of the flow and the luma.
+CLIP480_SYNCS = 1 + 2 + (2 * 4 * 2 + 2 * 4 * 2) + 3
+
+
+@pytest.mark.cuda
+def test_sync_debug_count_equals_host_syncs(card):
+    """Every wait that ``set_sync_debug_mode`` sees is counted in
+    ``host_syncs``, and none is added by tracing. The debug mode sees
+    torch's own waits (pageable copies, ``.item()``, synchronise); it does
+    not see a wait inside native code (the kernel library's C entries make
+    none) or the caching allocator's cudaMalloc and cudaFree."""
+    clip = _echo_clip(33, 480, 640)
+    config = default_optical_flow_config()
+    _run_clip(clip, config, card)  # builds, loads and warms up
+    tracing.get_stage_report()
+    torch.cuda.synchronize()
+    before = tracing.get_counters()["host_syncs"]
+    torch.cuda.set_sync_debug_mode("warn")  # the switch itself warns once
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _run_clip(clip, config, card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    grew = tracing.get_counters()["host_syncs"] - before
+    assert len(syncs) == grew == CLIP480_SYNCS, (len(syncs), grew)
+
+
+@pytest.mark.cuda
+def test_labelling_kernels_lie_inside_the_labelling_span(card):
+    """The device trace, put on the host clock by a marker as the
+    benchmark's profile does, and the span log share a clock: the
+    labelling's kernels, queued behind a spin kernel so that the host
+    enqueues them long before the card runs them, fall inside the
+    completion-timed ``labelling`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    mask = torch.from_numpy(rng.uniform(size=(33, 480, 640)) > 0.5).to(card)
+    connected_components(mask[:1, :32, :32])  # warm-up
+    marker = torch.zeros(1, device=card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_marker = time.perf_counter()
+        marker.add_(1)
+        with tracing.clip(card) as cid:
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning
+            ids = connected_components(mask)
+            ids.cpu()
+            tracing.anchor(card)
+        torch.cuda.synchronize()
+    tracing.get_stage_report()
+    labelling, = [s for s in tracing.get_spans()
+                  if s["clip"] == cid and s["name"] == "labelling"]
+    events = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    origin = events[0][0]  # the marker
+
+    def host(us):
+        return t_marker + (us - origin) / 1e6
+
+    kernels = [(host(a), host(b)) for a, b, name in events[1:]
+               if "spin_kernel" not in name and "emcpy" not in name]
+    total = sum(b - a for a, b in kernels)
+    inside = sum(max(0.0, min(b, labelling["end"])
+                     - max(a, labelling["start"])) for a, b in kernels)
+    assert total > 0.05 and inside >= 0.95 * total, (inside, total)
+    # the host alone left the span long before the card finished it
+    assert labelling["host_end"] < labelling["end"]
