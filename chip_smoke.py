@@ -98,6 +98,10 @@ arguments the TV-L1 and the DeepFlow path handed them):
     1024), card against CPU, ms per batch, parameters, peak memory; one
     UNet AdamW step at 1024 in train mode; one WGAN-GP discriminator
     update through train/gan.
+  * the masks' labelling kernel (phase_labelling, csrc/labelling.cu) on
+    the complement of the Otsu masks of 40-frame 480x640 and 600x800
+    stacks, connectivity 1 as the fills label them: bit-equal to the
+    plain loop, its time, bound and device launches.
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, and the device launches per
@@ -163,6 +167,21 @@ OPS_STEP, OPS_ERR, OPS_MEDIAN_PLANE = 56, 5, 150
 K1_STEP_BYTES = (11 + 6) * 4
 # and a median of u and v: each plane read once and written once
 MEDIAN_BYTES = 2 * 2 * 4
+# builds of the labelling kernel (csrc/labelling.cu: LB_R rounds a pass on
+# an LB_EW x LB_EH extended tile, the tile and a halo of LB_R, one thread
+# a column) that labelling_tuning compares with the default one. A
+# pixel-round is 5 integer operations (four minimums and the foreground
+# select); a labelling reads the mask (1 B) and writes the ids (4 B)
+LB_VARIANTS = (
+    {}, {"LB_R": 16, "LB_EH": 64, "LB_MIN_BLOCKS": 2},
+    {"LB_R": 16, "LB_EH": 96, "LB_MIN_BLOCKS": 1},
+    {"LB_R": 6, "LB_EH": 40, "LB_MIN_BLOCKS": 4},
+    {"LB_EH": 40, "LB_MIN_BLOCKS": 4}, {"LB_EH": 56, "LB_MIN_BLOCKS": 2},
+    {"LB_R": 10, "LB_EH": 56, "LB_MIN_BLOCKS": 2},
+    {"LB_EW": 128, "LB_MIN_BLOCKS": 6})
+OPS_LABEL_ROUND, LABEL_BYTES = 5, 1 + 4
+# the clip cells' shapes: 33 frames bucket to 40
+LABEL_SHAPES = ((40, CLIP_H, CLIP_W), (40, K2_H, K2_W))
 
 # flow sanity on the wall: end-point error against the analytic motion.
 # The port's CPU run of the same clip at the same settings measured a
@@ -326,8 +345,10 @@ TVL1_DEVICE_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
                        "block_sweep_kernel", "block_end_kernel")
 DEEPFLOW_DEVICE_KERNELS = ("coefs_kernel", "sweep_kernel",
                            "resident_kernel")
+LABEL_DEVICE_KERNELS = ("label_pass_kernel",)
 DEVICE_KERNELS = {"tvl1.cu": TVL1_DEVICE_KERNELS,
-                  "deepflow.cu": DEEPFLOW_DEVICE_KERNELS}
+                  "deepflow.cu": DEEPFLOW_DEVICE_KERNELS,
+                  "labelling.cu": LABEL_DEVICE_KERNELS}
 
 # the DeepFlow path: 5 levels x 3 fixed points, one K3 call each; K3 is
 # held against its plain version at every level (the two coarsest with
@@ -885,7 +906,7 @@ def phase_k1(captured, calls):
 
 _COUNTS_BASE = {}
 _WRAPPERS = ("tvl1_outer_loop", "tvl1_block_loop", "tvl1_inner_block",
-             "median_filter_5x5", "sor_sweeps")
+             "median_filter_5x5", "sor_sweeps", "connected_components")
 
 
 def reset_counts():
@@ -1022,17 +1043,23 @@ def profile_clip(run_clip):
 # device_launches: the kernel library's own count over the clip
 # (cuda_lib.device_launch_count): K1 1 per call; K3 12 per call at the
 # three tiled levels and 1 at the two resident ones (3 psi rounds of 12
-# SOR iterations); the block loop 70 per call at epsilon 0.01
+# SOR iterations); the block loop 70 per call at epsilon 0.01; on top, the
+# masks' labellings (connected_components calls), the library's
+# labelling_passes device launches each: two a clip on the Otsu paths
+# (fill and size filter), two per label on the RVIO_2class paths (rv, av)
 _NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
-         "median_filter_5x5": 0, "sor_sweeps": 0}
+         "median_filter_5x5": 0, "sor_sweeps": 0, "connected_components": 0}
+OTSU_LABELLINGS, RVIO_LABELLINGS = 2, 4
 PATHS = {
     "TVL1": dict(mode="otsu", algo="TVL1",
-                 counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
+                 counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                             connected_components=OTSU_LABELLINGS),
                  device={"outer_loop_kernel"},
                  device_launches=TV_LEVELS * TV_WARPS,
                  bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
     "deepflow": dict(mode="otsu", algo="deepflow",
-                     counts=dict(_NONE, sor_sweeps=DF_LEVELS * DF_FP_ITERS),
+                     counts=dict(_NONE, sor_sweeps=DF_LEVELS * DF_FP_ITERS,
+                                 connected_components=OTSU_LABELLINGS),
                      device=set(),
                      device_launches=DF_FP_ITERS * (
                          3 * k3_device_launches(False, 3, 12)
@@ -1041,13 +1068,15 @@ PATHS = {
     "TVL1 600x800": dict(
         mode="otsu", algo="TVL1",
         counts=dict(_NONE, tvl1_outer_loop=(TV_LEVELS - 1) * TV_WARPS,
-                    tvl1_block_loop=TV_WARPS),
+                    tvl1_block_loop=TV_WARPS,
+                    connected_components=OTSU_LABELLINGS),
         device={"outer_loop_kernel", "block_sweep_kernel",
                 "block_end_kernel"},
         device_launches=(TV_LEVELS - 1) * TV_WARPS + TV_WARPS * 10 * (6 + 1),
         bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
     "SAM": dict(mode="RVIO_2class", algo="TVL1",
-                counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS),
+                counts=dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                            connected_components=RVIO_LABELLINGS),
                 device={"outer_loop_kernel"},
                 device_launches=TV_LEVELS * TV_WARPS,
                 bounds=(WALL_MEDIAN_EPE_PX, WALL_P95_EPE_PX)),
@@ -1068,7 +1097,9 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         compute_clip_flow, process_video,
     )
     from tee_optical_flow_torch.io.dicom import read_dicom_clip
-    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+    from tee_optical_flow_torch.ops.cuda_lib import (
+        device_launch_count, load_library,
+    )
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
 
@@ -1094,6 +1125,9 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         kw["_save_fn"] = capture
         log("h5py is absent: the schema is checked on the arrays handed to "
             "process_video's save function")
+    labellings = path["counts"]["connected_components"]
+    design = path["device_launches"] + labellings * (
+        load_library().labelling_passes(h, w))
     clip_s, counts = [], []
     for run in range(2):
         get_stage_report(reset=True)
@@ -1108,8 +1142,8 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         dev = device_launch_count()
         log(f"process_video: {clip_s[-1]:.3f} s, launches {counts[-1]}, "
             f"{dev} device launches (the library's count; design "
-            f"{path['device_launches']})")
-        assert dev == path["device_launches"], (name, dev)
+            f"{design}, {labellings} labellings among them)")
+        assert dev == design, (name, dev)
         log("  stages (host clock, s): " + ", ".join(
             f"{k} {v['total_s']:.3f}" for k, v in get_stage_report().items()))
     for c in counts:
@@ -1129,7 +1163,7 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
     device = profile_clip(lambda: process_video(dcm, out, segmentor, **kw))
     assert set(device["tvl1.cu"]) <= path["device"], (name, device)
     traced = sum(c for ours in device.values() for c, _ in ours.values())
-    assert traced <= path["device_launches"], (name, traced)
+    assert traced <= design, (name, traced)
 
     # the solver alone, on the same flow inputs, timed to completion
     _, arr = read_dicom_clip(dcm)
@@ -1145,6 +1179,116 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         f"{clip_s[0]:.3f} s); solver alone: {solver_s:.3f} s for "
         f"{images.shape[0] - 1} pairs at {h}x{w}")
     return counts[1], clip_s[1], solver_s, device, saved
+
+
+def label_stack(n, h, w):
+    """The complement of the Otsu masks of an n-frame h x w echo stack (the
+    33-frame clip, its last frame repeated as the clip path buckets it) on
+    the card: what binary_fill_holes labels, 4-connected."""
+    import torch
+
+    from tee_optical_flow_torch.ops.otsu import otsu_mask_stack
+
+    frames, _ = echo_clip(CLIP_FRAMES, h, w)
+    frames = np.concatenate([frames, np.repeat(frames[-1:], n - CLIP_FRAMES,
+                                               axis=0)])
+    gray = torch.from_numpy(frames).cuda().to(torch.float32) / 255.0
+    return ~otsu_mask_stack(gray)
+
+
+def phase_labelling():
+    """The labelling kernel (csrc/labelling.cu) at both clip cells' shapes
+    on label_stack's masks, connectivity 1: bit-equal to the plain loop on
+    the card, its mean ms over 5 calls (CUDA events), its bound (the
+    larger of the mask read and the ids written at the HBM rate and 5
+    integer operations a pixel-round at the float32 rate), its device
+    launches per call (the library's count, which its labelling_passes
+    schedules) and the plain loop's ms (one call, host clock,
+    synchronised)."""
+    import torch
+
+    from tee_optical_flow_torch.ops import morphology as mo
+    from tee_optical_flow_torch.ops.cuda_lib import load_library
+
+    records = {}
+    for n, h, w in LABEL_SHAPES:
+        mask = label_stack(n, h, w)
+        got = mo.connected_components(mask, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mo.connected_components_plain(mask, 1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = bool(torch.equal(got, ref))
+        assert equal, (n, h, w)
+        ms = cuda_ms(lambda: mo.connected_components(mask, 1), 5)
+        dev = device_launches(lambda: mo.connected_components(mask, 1),
+                              LABEL_DEVICE_KERNELS)
+        assert dev == load_library().labelling_passes(h, w), dev
+        npx, rounds = n * h * w, 2 * (h + w)
+        bms, by = bound(LABEL_BYTES * npx, OPS_LABEL_ROUND * npx * rounds)
+        rate = npx * rounds / ms / 1e6
+        log(f"labelling ({n},{h},{w}) connectivity 1, {rounds} rounds: "
+            f"bit-equal to the plain loop; {ms:.3f} ms kernel, "
+            f"{plain_ms:.3f} ms plain, bound {bms:.4f} ms ({by}), {dev} "
+            f"device launches, {rate:.1f} G pixel-rounds/s")
+        records[f"{n}x{h}x{w}"] = dict(
+            max_abs_err=0 if equal else None, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, device_launches=dev)
+    return records
+
+
+def labelling_check() -> int:
+    """phase_labelling alone, after the kernels' build: prints its record
+    as one JSON line. Run on the card with python3 -c "import chip_smoke,
+    sys; sys.exit(chip_smoke.labelling_check())"."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    print(json.dumps({"labelling": phase_labelling()}))
+    return 0
+
+
+def labelling_tuning():
+    """The labelling kernel under each build of LB_VARIANTS on
+    label_stack's masks at both clip shapes, connectivity 1 and 2: mean
+    ms over 3 calls (CUDA events), device launches per call and equality
+    with the default build. The basis of csrc/labelling.cu's LB_R and
+    extended tile. Run on the card with python3 -c "import chip_smoke;
+    chip_smoke.labelling_tuning()"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from tee_optical_flow_torch.ops import cuda_lib
+    from tee_optical_flow_torch.ops import morphology as mo
+
+    log(f"card: {phase_setup()[0]}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(cuda_lib.load_library, LB_VARIANTS))
+    log(f"{len(libs)} builds of the kernels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for n, h, w in LABEL_SHAPES:
+        mask = label_stack(n, h, w).contiguous()
+        for connectivity in (1, 2):
+            ref = mo.connected_components(mask, connectivity)
+            for defines, lib in zip(LB_VARIANTS, libs):
+                def run():
+                    return mo._label_on_card(mask, connectivity, lib)
+
+                equal = bool(torch.equal(run(), ref))
+                ms = cuda_ms(run, 3)
+                dev = device_launches(run, LABEL_DEVICE_KERNELS, lib)
+                log(f"labelling tuning ({n},{h},{w}) connectivity "
+                    f"{connectivity} {defines or 'production'}: {ms:.3f} ms,"
+                    f" {dev} device launches, equal to the default build: "
+                    f"{equal}")
+                assert dev == lib.labelling_passes(h, w), dev
+                assert equal, defines
 
 
 def phase_saliency(clip):
@@ -1801,7 +1945,8 @@ def phase_cohort(clip, workdir):
     counts = read_counts()
     log(f"config 4 process_video: {stages['process_video_s']:.3f} s, "
         f"launches {counts}")
-    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                          connected_components=RVIO_LABELLINGS), counts
     layout = saved["layout"]
     assert {"ecg", "art", "rv", "av", "bkgd"} <= set(layout), list(layout)
     assert layout["flow"][1]["waveforms_present"]
@@ -2068,7 +2213,9 @@ def phase_cli(clip, workdir, has_h5py):
     assert [c[0] for c in clips] == names, clips
     assert all(c[2] == TV_LEVELS * TV_WARPS for c in clips), clips
     assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS
-                          * len(names)), counts
+                          * len(names),
+                          connected_components=RVIO_LABELLINGS * len(names)), \
+        counts
     chunks = np.array_split(np.asarray(names), CLI_NCHUNKS)
     expect = [os.path.join(out, f"chunk{i}", name[:-4] + ".hdf5")
               for i, part in enumerate(chunks) for name in part]
@@ -2656,7 +2803,8 @@ def phase_train(clip, workdir, has_h5py):
         f"{n}x{clip.shape[1]}x{clip.shape[2]} DICOM: rc {rc} in "
         f"{process_s:.1f} s; launches {counts}")
     assert rc == 0, rc
-    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                          connected_components=RVIO_LABELLINGS), counts
     if not has_h5py:
         (layout,) = layouts.values()
         check_schema(saved_of_layout(layout), n, *clip.shape[1:],
@@ -2939,7 +3087,8 @@ def phase_train_mesh(clip, workdir, has_h5py):
         f"RVIO_2class: rc {rc} in {time.perf_counter() - t1:.1f} s; "
         f"launches {counts}")
     assert rc == 0, rc
-    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), counts
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                          connected_components=RVIO_LABELLINGS), counts
     if not has_h5py:
         (layout,) = layouts.values()
         check_schema(saved_of_layout(layout), n, *clip.shape[1:],
@@ -3155,8 +3304,8 @@ def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
         f"{clip_s[0]:.3f} s (load_segmentor {load_s:.3f} s), max memory "
         f"allocated {peak:.2f} GB; launches {counts}")
     assert rc == 0, rc
-    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), \
-        counts
+    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                          connected_components=RVIO_LABELLINGS), counts
     if has_h5py:
         (path,) = [os.path.join(r, f) for r, _, fs in os.walk(out)
                    for f in fs if f.endswith(".hdf5")]
@@ -3552,11 +3701,13 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
         each, and of the uncompressed file through the pure-Python parser;
       * process_video(mode="otsu", OF_algo="TVL1") on the JPEG-Lossless
         file and on the uncompressed one: 25 K1 calls and 25 device
-        launches each, the saved layouts bit-equal;
+        launches each besides the masks' two labellings, the saved layouts
+        bit-equal;
       * process_video with tvl1_gamma=GAMMA under the production config on
         the uncompressed file: the wall end-point error within the TV-L1
-        bounds, no K1, every device launch a standalone median
-        (tvl1_median5x5, counted by its wrapper and by the library); the
+        bounds, no K1, every device launch but the labellings' a
+        standalone median (tvl1_median5x5, counted by its wrapper and by
+        the library); the
         median bit-equal to its plain version on the finest level's
         arguments the path handed it, timed there; the gamma solve alone
         at epsilon 0 on GAMMA_EPS0_FRAMES frames with GAMMA_MEDIANS_EPS0
@@ -3591,12 +3742,15 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
     from tee_optical_flow_torch.models.sam import preprocess_frames
     from tee_optical_flow_torch.ops import tvl1 as tt
     from tee_optical_flow_torch.ops import warp as tw
-    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+    from tee_optical_flow_torch.ops.cuda_lib import (
+        device_launch_count, load_library,
+    )
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
     from tee_optical_flow_torch.viz.manager import VisualizationManager
 
     n, h, w = clip.shape
+    passes = load_library().labelling_passes(h, w)
     out = {}
     log(f"--- compressed DICOM and TV-L1 gamma on {n}x{h}x{w}")
     assert dicom_native.native_available(), "dicomlite did not build"
@@ -3681,9 +3835,9 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
         log(f"process_video otsu TVL1 on the {syntax} DICOM: {clip_s:.3f} s,"
             f" launches {counts}, {dev} device launches; dicom_read stage "
             f"{stage_s[syntax].get('dicom_read', float('nan')):.3f} s")
-        assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS), \
-            counts
-        assert dev == TV_LEVELS * TV_WARPS, dev
+        assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+                              connected_components=OTSU_LABELLINGS), counts
+        assert dev == TV_LEVELS * TV_WARPS + OTSU_LABELLINGS * passes, dev
         layouts[syntax] = saved.pop("layout")
         out[f"otsu_{syntax}_clip_s"] = clip_s
     _same_layout(layouts["jpeg_lossless"], layouts["native"])
@@ -3712,12 +3866,15 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
                       **kw)
     torch.cuda.synchronize()
     gamma_s = time.perf_counter() - t0
-    counts, dev = read_counts(), device_launch_count()
+    # the Otsu masks' two labellings launch the rest
+    counts = read_counts()
+    dev = device_launch_count() - OTSU_LABELLINGS * passes
     log(f"process_video otsu TVL1 gamma={GAMMA} (epsilon "
         f"{gcfg.tvl1_epsilon}): {gamma_s:.3f} s, launches {counts}, {dev} "
         f"device launches (at most {GAMMA_MEDIANS_EPS0}: the epsilon stop "
         f"ends a warp's outer loop once every pair is frozen)")
-    assert counts == dict(_NONE, median_filter_5x5=dev), counts
+    assert counts == dict(_NONE, median_filter_5x5=dev,
+                          connected_components=OTSU_LABELLINGS), counts
     assert 0 < dev <= GAMMA_MEDIANS_EPS0, dev
     check_outputs(saved, n, h, w, truth, (WALL_MEDIAN_EPE_PX,
                                           WALL_P95_EPE_PX))
@@ -4398,6 +4555,7 @@ def main() -> int:
     card, has_h5py = phase_setup()
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
+    labelling = phase_labelling()
     k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
     k2_args, k2_calls, sam_labels = {}, {}, []
     clips = {"TVL1": (clip, truth), "deepflow": (clip, truth),
@@ -4537,6 +4695,18 @@ def main() -> int:
                                    "k2_path_launches", "mesh_path_launches")
                if k in rec},
         })
+    # the labelling: its calls in each Otsu path's clip of that shape (fill
+    # and size filter; phase_path asserts them and their device launches)
+    for (n, h, w), (counts, path) in zip(LABEL_SHAPES, (
+            (main_counts, "main"), (k2_counts, "K2"))):
+        kernels.append({
+            "name": "connected_components", "route": "cuda",
+            "source": "tee_optical_flow_torch/csrc/labelling.cu",
+            "replaces": "none: tee_optical_flow_tpu/ops/morphology.py:49 "
+                        "(a lax.fori_loop stencil)",
+            "launches": counts["connected_components"],
+            "path": f"{path}: otsu masks {n}x{h}x{w}, connectivity 1",
+            "library_ms": None, **labelling[f"{n}x{h}x{w}"]})
     for name, (_, clip_s, solver_s, _, _) in results.items():
         log(f"{name}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
     sam_clip_s = results["SAM"][1]

@@ -3,14 +3,14 @@
 The sources are compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc -c`` per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
-``ctypes``: ``csrc/tvl1.cu`` (K1, the block loop with K2 and the
-median) and
-``csrc/deepflow.cu`` (K3). The library lands in ``build/kernels/`` at the
-root of the checkout (a directory git ignores), named by a hash of the
-sources and the flags, so an edited source is rebuilt and unchanged ones
-are reused. A variant with ``-D`` overrides of a source's compile-time
-settings (``load_library(defines)``) is built beside it under its own
-name; only measurements and tests ask for one.
+``ctypes``: ``csrc/tvl1.cu`` (K1, the block loop with K2 and the median),
+``csrc/deepflow.cu`` (K3) and ``csrc/labelling.cu`` (the masks'
+labelling). The library lands in ``build/kernels/`` at the root of the
+checkout (a directory git ignores), named by a hash of the sources and the
+flags, so an edited source is rebuilt and unchanged ones are reused. A
+variant with ``-D`` overrides of a source's compile-time settings
+(``load_library(defines)``) is built beside it under its own name; only
+measurements and tests ask for one.
 
 Parity flags: ``--fmad=false`` keeps every multiply and add separately
 rounded, as the plain PyTorch versions and the JAX reference compute them
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "tvl1_block_tiles": (_I, _I),
     "deepflow_resident": (_I, _I, _P),
     "deepflow_solve": (_P,) * 16 + (_I,) * 5 + (_F,) * 6 + (_P,),
+    "labelling_passes": (_I, _I),
+    "labelling_components": (_P,) * 3 + (_I,) * 4 + (_P,),
 }
 
 # the loaded libraries, by their nvcc flags

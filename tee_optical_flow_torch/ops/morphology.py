@@ -5,7 +5,9 @@ Every op runs batched over the frame axis, on the device the masks lie on:
   * connected components by a fixed ``2*(H+W)`` rounds of neighbour-min
     label propagation. This is the JAX labelling round for round, so the
     labels are bit-equal to it by construction, including its limit: it
-    is exact for components whose geodesic diameter is at most 2*(H+W);
+    is exact for components whose geodesic diameter is at most 2*(H+W).
+    On a card the rounds run in ``csrc/labelling.cu``, many per launch;
+    on the CPU in the plain loop;
   * component sizes by scatter-adds keyed by root label;
   * fill-holes as border reachability on the complement;
   * the temporal moving-average mask as a cumsum (reference :90-111);
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.tracing import count, count_sync, trace_stage
+from .cuda_lib import check_launch, launch_context, load_library, ptr
 
 
 def _neighbor_min(ids: torch.Tensor, big: int, connectivity: int
@@ -47,28 +50,71 @@ def _neighbor_min(ids: torch.Tensor, big: int, connectivity: int
     return torch.minimum(ids, m)
 
 
+def connected_components_plain(mask: torch.Tensor, connectivity: int = 2
+                               ) -> torch.Tensor:
+    """The plain version of the labelling kernel: 2*(H+W) rounds of
+    neighbour-min propagation over a (N, H, W) boolean mask, each round
+    a few PyTorch operations (the JAX package's ``lax.fori_loop``, round
+    for round). Returns (N, H, W) int32 ids as ``connected_components``
+    does."""
+    _, h, w = mask.shape
+    big = h * w
+    lin = torch.arange(big, dtype=torch.int32,
+                       device=mask.device).reshape(1, h, w)
+    ids = torch.where(mask, lin, big)
+    for _ in range(2 * (h + w)):
+        ids = torch.where(mask, _neighbor_min(ids, big, connectivity), big)
+    return ids
+
+
+def _label_on_card(mask: torch.Tensor, connectivity: int,
+                   lib=None) -> torch.Tensor:
+    """``labelling_components`` of ``csrc/labelling.cu`` (of ``lib``, the
+    kernel library by default) on the current stream: ceil(2*(H+W) /
+    LB_R) pass launches, the ids ping-ponging between the output and one
+    scratch stack. Reads nothing back."""
+    n, h, w = mask.shape
+    if h * w >= 2 ** 31:
+        raise ValueError(f"connected_components: {h}x{w} frames hold more "
+                         "ids than int32 has")
+    mask = mask.contiguous()
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    scratch = torch.empty_like(out)
+    lib = lib or load_library()
+    with launch_context(mask.device) as stream:
+        check_launch("labelling_components", lib.labelling_components(
+            ptr(mask), ptr(out), ptr(scratch), n, h, w, connectivity,
+            stream))
+    count("launches.connected_components")
+    return out
+
+
 def connected_components(mask: torch.Tensor, connectivity: int = 2
                          ) -> torch.Tensor:
     """Label a (H, W) or (N, H, W) boolean mask, each frame on its own.
 
     Returns int32 of the same shape: for foreground pixels, the linear
     index (within its frame) of the component's root, its first pixel in
-    scan order; background pixels hold ``H*W``."""
+    scan order; background pixels hold ``H*W``.
+
+    On a CUDA tensor this launches the labelling kernel of
+    ``csrc/labelling.cu`` (counted in ``launches.connected_components``);
+    on a CPU tensor it runs ``connected_components_plain``. Both run the
+    same rounds and give the same bits. Any other device raises."""
     squeeze = mask.ndim == 2
     mask = mask.to(torch.bool)
     if squeeze:
         mask = mask[None]
     _, h, w = mask.shape
-    big = h * w
-    rounds = 2 * (h + w)
+    if mask.device.type not in ("cpu", "cuda"):
+        raise ValueError("connected_components runs on the CPU or a CUDA "
+                         f"card, not on {mask.device}")
     with trace_stage("labelling"):
-        lin = torch.arange(big, dtype=torch.int32,
-                           device=mask.device).reshape(1, h, w)
-        ids = torch.where(mask, lin, big)
-        for _ in range(rounds):
-            ids = torch.where(mask, _neighbor_min(ids, big, connectivity),
-                              big)
-    count("labelling_rounds", rounds)
+        if mask.device.type == "cpu":
+            ids = connected_components_plain(mask, connectivity)
+        else:
+            ids = _label_on_card(mask, connectivity)
+    count("labelling_rounds", 2 * (h + w))
     return ids[0] if squeeze else ids
 
 

@@ -1,9 +1,9 @@
-"""The port's CUDA kernels (K1, the block loop with K2, the median and K3)
-against their plain PyTorch versions, and the SAM segmentor and one SAM
-fine-tuning step against their CPU runs, on the card (vit_t, and vit_b at
-a small image). Marked ``cuda``;
-without a CUDA device every test skips, decided inside the ``card``
-fixture so that every worker collects the same tests.
+"""The port's CUDA kernels (K1, the block loop with K2, the median, K3 and
+the labelling) against their plain PyTorch versions, and the SAM
+segmentor and one SAM fine-tuning step against their CPU runs, on the
+card (vit_t, and vit_b at a small image). Marked ``cuda``; without a CUDA
+device every test skips, decided inside the ``card`` fixture so that
+every worker collects the same tests.
 
 On the machine with the card (which has no JAX, so the repo's conftest
 cannot load there):
@@ -23,7 +23,8 @@ within NEAR (a share of the threshold) of it flips
 (``tvl1_kernels.block_loop_stops``): the plain version's own count where
 no delta came that close. K3 (the DeepFlow SOR
 solve) is bit-equal on both of its routes (resident and tiled), with and
-without the matching term.
+without the matching term. The labelling is bit-equal round for round,
+where it has not converged too.
 """
 
 import numpy as np
@@ -31,10 +32,15 @@ import pytest
 import torch
 
 from tee_optical_flow_torch.ops import deepflow_kernels as dk
+from tee_optical_flow_torch.ops import morphology as mo
 from tee_optical_flow_torch.ops import tvl1_kernels as tk
 from tee_optical_flow_torch.ops.cuda_lib import load_library
 from tee_optical_flow_torch.ops import warp as tw
-from tee_optical_flow_torch.utils.tracing import get_counters
+from tee_optical_flow_torch.utils.tracing import (
+    get_counters, get_stage_report,
+)
+from test_torch_labelling import CASES as LABEL_CASES
+from test_torch_labelling import _cases as label_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -247,20 +253,21 @@ def test_inner_block_device_launches(card, n_iters):
 
 LIBRARY_KERNELS = ("outer_loop_kernel", "median5x5_kernel",
                    "block_sweep_kernel", "block_end_kernel", "coefs_kernel",
-                   "sweep_kernel", "resident_kernel")
+                   "sweep_kernel", "resident_kernel", "label_pass_kernel")
 
 
 @pytest.mark.parametrize("call", ["outer_loop", "median", "inner_block",
                                   "block_loop", "sor_resident", "sor_tiled",
-                                  "refused"])
+                                  "refused", "labelling"])
 def test_device_launch_count(card, call):
     """The kernel library's own count of the launches its C entries issued
     (``cuda_lib.device_launch_count``) equals each call's design count: K1
     one cooperative launch, the median one, K2 alone
     ``tvl1_block_sweeps(n)`` sweep launches, the block loop with the stop
     outer x (sweeps + 1), K3 one resident launch or, tiled, 3 psi rounds
-    x (1 coefficients + 3 sweep launches of S = 4 SOR iterations); a call
-    whose launch is refused counts none. A profiler trace of the same call
+    x (1 coefficients + 3 sweep launches of S = 4 SOR iterations), the
+    labelling ``labelling_passes(H, W)`` pass launches; a call whose
+    launch is refused counts none. A profiler trace of the same call
     shows no more of the library's kernels (it may show fewer)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -286,6 +293,8 @@ def test_device_launch_count(card, call):
             *_df_level(DF_SHAPES["above"], card)[0], None, **DF_KW), 12),
         "refused": (lambda: pytest.raises(RuntimeError, tk.block_loop, lib,
                                           args, epsilon=0.01, **loop), 0),
+        "labelling": (lambda: mo.connected_components(args[4] > 0, 1),
+                      lib.labelling_passes(*SHAPES["small"][1:])),
     }
     fn, want = calls[call]
     counts = []
@@ -415,6 +424,91 @@ def test_sor_sweeps_raises_on_refused_launch(card):
            .transpose(1, 2))
     with pytest.raises(ValueError):
         dk.sor_sweeps(*above, bad, **DF_KW)
+
+
+
+# --- the labelling kernel (csrc/labelling.cu) --------------------------------
+
+def _label_plain_on_card(monkeypatch):
+    """Route connected_components' CUDA branch through the plain loop."""
+    monkeypatch.setattr(mo, "_label_on_card",
+                        lambda m, c: mo.connected_components_plain(m, c))
+
+
+def _labelling_spans():
+    """The labelling spans closed so far (the stage report's calls)."""
+    return get_stage_report().get("labelling", {}).get("calls", 0)
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("geometry,case", LABEL_CASES)
+def test_labelling_bit_equal(card, geometry, case, connectivity):
+    """The emulation's cases (tests/test_torch_labelling.py), the
+    non-converging serpentine among them, bit-equal to the plain loop on
+    the CPU; one wrapper call each."""
+    mask = label_cases(geometry)[case]
+    before = _launches("connected_components")
+    got = mo.connected_components(mask.to(card), connectivity)
+    assert _launches("connected_components") == before + 1
+    assert torch.equal(got.cpu(), mo.connected_components(mask,
+                                                          connectivity))
+
+
+def _otsu_stack(h, w, device):
+    """Otsu masks of chip_smoke's 33-frame echo clip, bucketed to 40
+    frames as the clip path does."""
+    import chip_smoke
+    from tee_optical_flow_torch.ops.otsu import otsu_mask_stack
+
+    frames, _ = chip_smoke.echo_clip(33, h, w)
+    frames = np.concatenate([frames, np.repeat(frames[-1:], 7, axis=0)])
+    gray = torch.from_numpy(frames).to(device).to(torch.float32) / 255.0
+    return otsu_mask_stack(gray)
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (600, 800)])
+def test_labelling_otsu_masks_bit_equal(card, hw, monkeypatch):
+    """The Otsu path's fills and size filters at both cells' shapes, and
+    the cohort analysis's 8-connected reads, kernel against the plain loop
+    on the card; every labelling takes the kernel, one call a span."""
+    raw = _otsu_stack(*hw, card)
+    calls = {
+        "fill": lambda: mo.binary_fill_holes(raw),
+        "remove": lambda: mo.remove_small_objects(raw, 500, 1),
+        "clean": lambda: mo.clean_binary_stack(raw, 500),
+        "centroids": lambda: mo.component_areas_and_centroids(raw),
+        "first_area": lambda: mo.label_first_area(raw),
+    }
+    spans, launches = _labelling_spans(), _launches("connected_components")
+    got = {k: fn() for k, fn in calls.items()}
+    assert _launches("connected_components") - launches == 6
+    assert _labelling_spans() - spans == 6
+    _label_plain_on_card(monkeypatch)
+    for k, fn in calls.items():
+        ref = fn()
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got[k], ref))):
+            assert torch.equal(a, b), k
+
+
+def test_labelling_waits_for_nothing(card):
+    """The wrapper reads nothing back and makes no host wait that sync
+    debug mode sees; the library counts its design's pass launches."""
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+
+    mask = torch.rand((4, 97, 131), device=card) > 0.4
+    mo.connected_components(mask, 1)  # builds and loads the library
+    torch.cuda.synchronize()
+    lib = load_library()
+    device_launch_count(lib, reset=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for connectivity in (1, 2):
+            mo.connected_components(mask, connectivity)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert device_launch_count(lib) == 2 * lib.labelling_passes(97, 131)
 
 
 # the SAM segmentor on the card (no kernel of this repository: library

@@ -1,0 +1,214 @@
+"""The labelling kernel's pass schedule, emulated on the CPU and held to the
+plain labelling (``connected_components`` on a CPU tensor).
+
+``csrc/labelling.cu``'s ``labelling_components`` runs 2*(H+W) rounds of
+neighbour-min propagation as ceil(2*(H+W) / R) pass launches. A pass loads
+an extended tile of EW x EH ids (its output tile and a halo of R pixels on
+every side, pixels outside the image at big = H*W; the first pass builds
+the ids from the mask), runs up to R Jacobi rounds on it, where a missing
+neighbour at the extended tile's edge reads as the pixel itself and a pixel
+whose id is big keeps it, and writes only its output tile: the region
+whose values are right shrinks by a pixel a round. The last pass
+runs the remainder of the rounds, and the ids ping-pong between the output
+and a scratch stack, the first buffer chosen so that the last pass writes
+the output. The kernel takes the 3x3 minimum as the column minimum of the
+row minimums, with each clamped at the tile's edge: the same as the
+minimum over the edge-replicated square computed here.
+
+The emulation follows that schedule at the kernel's own geometry (read
+from the source) and at a scaled-down one a few pixels wide, and must be
+bit-equal to the plain labelling for both connectivities, 2-D and 3-D
+masks, shapes that are a multiple of neither tile side, frames narrower
+than the halo, round counts that are not a multiple of R, empty and full
+masks, and a serpentine that does not converge within 2*(H+W) rounds: the
+schedule keeps the plain loop's rounds, not merely its fixed point. A halo
+one pixel short must differ on the serpentine.
+"""
+
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import tee_optical_flow_torch
+from tee_optical_flow_torch.ops import morphology as mo
+from tee_optical_flow_torch.utils.tracing import get_counters
+
+torch.set_num_threads(1)
+
+
+def _source_geometry():
+    """(R, EW, EH) as csrc/labelling.cu defines them by default."""
+    src = (Path(tee_optical_flow_torch.__file__).parent / "csrc"
+           / "labelling.cu").read_text()
+    return tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
+                 for name in ("LB_R", "LB_EW", "LB_EH"))
+
+
+# (rounds per pass, extended width, extended height, halo): the kernel's,
+# and a scaled-down one whose output tiles are 4 x 3 pixels
+GEOMETRIES = {"kernel": _source_geometry() + (_source_geometry()[0],),
+              "small": (3, 10, 9, 3)}
+
+
+def _tile_round(t, big, connectivity):
+    """One Jacobi round on a batch of extended tiles (T, EH, EW): the
+    least id over the cross or the square, the tile's edge replicated;
+    ids equal to big stay big."""
+    eh, ew = t.shape[1:]
+    rows = torch.arange(-1, eh + 1).clamp(0, eh - 1)
+    cols = torch.arange(-1, ew + 1).clamp(0, ew - 1)
+    p = t[:, rows][:, :, cols]
+    m = torch.minimum(torch.minimum(p[:, :-2, 1:-1], p[:, 2:, 1:-1]),
+                      torch.minimum(p[:, 1:-1, :-2], p[:, 1:-1, 2:]))
+    if connectivity == 2:
+        m = torch.minimum(m, torch.minimum(
+            torch.minimum(p[:, :-2, :-2], p[:, :-2, 2:]),
+            torch.minimum(p[:, 2:, :-2], p[:, 2:, 2:])))
+    return torch.where(t < big, torch.minimum(t, m), big)
+
+
+def _pass(src, dst, rounds, geometry, connectivity):
+    """One launch: every extended tile of src (N, H, W) through ``rounds``
+    rounds, its output tile written into dst."""
+    _, ew, eh, halo = geometry
+    n, h, w = src.shape
+    big = h * w
+    tw, th = ew - 2 * halo, eh - 2 * halo
+    tiles_x, tiles_y = math.ceil(w / tw), math.ceil(h / th)
+    padded = F.pad(src, (halo, tiles_x * tw + halo - w,
+                         halo, tiles_y * th + halo - h), value=big)
+    tiles = padded.unfold(1, eh, th).unfold(2, ew, tw).reshape(-1, eh, ew)
+    for _ in range(rounds):
+        tiles = _tile_round(tiles, big, connectivity)
+    inner = tiles[:, halo:eh - halo, halo:ew - halo]
+    whole = inner.reshape(n, tiles_y, tiles_x, th, tw).permute(
+        0, 1, 3, 2, 4).reshape(n, tiles_y * th, tiles_x * tw)
+    dst.copy_(whole[:, :h, :w])
+
+
+def emulate(mask, geometry, connectivity):
+    """labelling_components' schedule on a (N, H, W) boolean mask."""
+    r = geometry[0]
+    n, h, w = mask.shape
+    big = h * w
+    total = 2 * (h + w)
+    passes = math.ceil(total / r)
+    # stale values in both buffers: a tile left unwritten shows
+    out = torch.full((n, h, w), -7, dtype=torch.int32)
+    scratch = torch.full((n, h, w), -9, dtype=torch.int32)
+    lin = torch.arange(big, dtype=torch.int32).reshape(1, h, w)
+    prev = torch.where(mask, lin, big)  # the first pass reads the mask
+    left = total
+    for p in range(passes):
+        dst = scratch if (passes - 1 - p) % 2 else out
+        rounds = min(left, r)
+        left -= rounds
+        _pass(prev, dst, rounds, geometry, connectivity)
+        prev = dst
+    assert left == 0 and prev is out
+    return out
+
+
+def serpentine(h, w):
+    """Corridors on the even rows joined at alternate ends: one component
+    whose first pixel's id has to travel about h*w/2 pixels."""
+    m = np.zeros((h, w), bool)
+    m[0::2] = True
+    for k, row in enumerate(range(1, h, 2)):
+        m[row, w - 1 if k % 2 == 0 else 0] = True
+    return torch.from_numpy(m)
+
+
+def _random(shape, density, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(size=shape) < density)
+
+
+def _cases(geometry):
+    """name -> (N, H, W) or (H, W) mask; the shapes are a multiple of
+    neither tile side and span more than one tile in both directions."""
+    r, ew, eh, halo = GEOMETRIES[geometry]
+    tw, th = ew - 2 * halo, eh - 2 * halo
+    h, w = max(th + 1, 10), max(tw + 1, 15)
+    return {
+        "ragged": _random((2, h, w), 0.6),
+        "ragged_2d": _random((h, w), 0.5, seed=1),
+        "sparse": _random((1, h, w), 0.35, seed=2),
+        "narrow_h": _random((3, max(1, halo // 2), w), 0.7, seed=3),
+        "narrow_w": _random((2, h, max(1, halo - 1)), 0.7, seed=4),
+        "tiny": _random((1, 1, 2), 1.0),
+        "empty": torch.zeros((1, h, w), dtype=torch.bool),
+        "full": torch.ones((1, h, w), dtype=torch.bool),
+        "serpentine": serpentine(h, w)[None],
+    }
+
+
+CASES = [(g, c) for g in GEOMETRIES for c in _cases("small")]
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("geometry,case", CASES)
+def test_schedule_matches_plain(geometry, case, connectivity):
+    mask = _cases(geometry)[case]
+    ref = mo.connected_components(mask, connectivity)
+    stack = mask if mask.ndim == 3 else mask[None]
+    got = emulate(stack, GEOMETRIES[geometry], connectivity)
+    assert torch.equal(got if mask.ndim == 3 else got[0], ref)
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_cases_cover_the_schedule(geometry):
+    """The cases reach what they are named for: a remainder pass, frames
+    narrower than the halo, several tiles, and a serpentine that has not
+    converged after 2*(H+W) rounds."""
+    r, ew, eh, halo = GEOMETRIES[geometry]
+    cases = _cases(geometry)
+    _, h, w = cases["ragged"].shape
+    assert (2 * (h + w)) % r != 0
+    assert h % (eh - 2 * halo) and w % (ew - 2 * halo)
+    assert h > eh - 2 * halo and w > ew - 2 * halo
+    assert cases["narrow_h"].shape[1] < halo
+    assert cases["narrow_w"].shape[2] < halo
+    snake = cases["serpentine"]
+    for connectivity in (1, 2):
+        ids = mo.connected_components(snake, connectivity)
+        more = torch.where(snake, mo._neighbor_min(ids, h * w, connectivity),
+                           h * w)
+        assert not torch.equal(more, ids), connectivity
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_halo_one_short_differs(geometry, connectivity):
+    """R rounds a pass on the same output tiles with a halo of R - 1: their
+    edges miss a neighbour's id, and the serpentine shows it."""
+    r, ew, eh, halo = GEOMETRIES[geometry]
+    snake = _cases(geometry)["serpentine"]
+    ref = mo.connected_components(snake, connectivity)
+    short = emulate(snake, (r, ew - 2, eh - 2, halo - 1), connectivity)
+    assert not torch.equal(short, ref)
+
+
+def test_cpu_labelling_counts_rounds_not_launches():
+    """A CPU tensor takes the plain loop: it adds the rounds, and no call
+    of the kernel's wrapper."""
+    before = get_counters()
+    mask = _random((2, 9, 13), 0.5)
+    ids = mo.connected_components(mask, 1)
+    after = get_counters()
+    assert torch.equal(ids, mo.connected_components_plain(mask, 1))
+    assert after.get("labelling_rounds", 0) \
+        - before.get("labelling_rounds", 0) == 2 * (9 + 13)
+    assert after.get("launches.connected_components", 0) \
+        == before.get("launches.connected_components", 0)
+
+
+def test_other_devices_raise():
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        mo.connected_components(torch.zeros((4, 5), dtype=torch.bool,
+                                            device="meta"))

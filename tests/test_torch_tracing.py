@@ -343,11 +343,19 @@ def test_labelling_kernels_lie_inside_the_labelling_span(card):
     benchmark's profile does, and the span log share a clock: the
     labelling's kernels, queued behind a spin kernel so that the host
     enqueues them long before the card runs them, fall inside the
-    completion-timed ``labelling`` span."""
+    completion-timed ``labelling`` span. The stack is 100 frames of
+    1920x2560 (4 times a 33x480x640 clip's rounds over 48 times its
+    pixels), so that the labelling kernel's passes take seconds: a 0.5 s
+    stack once read 79% inside, a trace shifted early by some 0.1 s. The
+    marker's launch delay stays under 1 ms
+    (``test_profiler_marker_launch_delay``); a dropped marker event,
+    which puts the origin on a later kernel, would shift it so, and
+    stays a small share of seconds of passes."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(0)
-    mask = torch.from_numpy(rng.uniform(size=(33, 480, 640)) > 0.5).to(card)
+    seeded = torch.Generator(card).manual_seed(0)
+    mask = torch.rand((100, 1920, 2560), generator=seeded,
+                      device=card) > 0.5
     connected_components(mask[:1, :32, :32])  # warm-up
     marker = torch.zeros(1, device=card)
     torch.cuda.synchronize()
@@ -379,3 +387,57 @@ def test_labelling_kernels_lie_inside_the_labelling_span(card):
     assert total > 0.05 and inside >= 0.95 * total, (inside, total)
     # the host alone left the span long before the card finished it
     assert labelling["host_end"] < labelling["end"]
+
+
+
+# Spin kernels of about 0.01, 0.1 and 1 ms (at 1-2 GHz), told apart in a
+# trace by their lengths (microseconds) when the profiler drops some.
+MARKER_CYCLES = (20_000, 200_000, 2_000_000)
+MARKER_US = (50, 500)
+
+
+@pytest.mark.cuda
+def test_profiler_marker_launch_delay(card):
+    """The benchmark's profile (``benchmark/trace.profile``) and the test
+    above put the device trace on the host clock by its first event, a
+    marker kernel launched right after ``perf_counter()``: a delay of
+    that first launch under the profiler, or the profiler dropping it,
+    shifts every device event early. Six profiles of three markers, each
+    launched after a synchronise: a marker's distance from the first on
+    the host clock less its distance on the trace is the first marker's
+    delay. In every profile that kept all three markers, the two later
+    ones give the same delay within 1 ms (which holds the method) and
+    the delay is under 1 ms: a launch is not what shifts the trace. At
+    least one profile keeps all three. The delays, and the markers each
+    profile dropped, print under ``-s``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(MARKER_CYCLES[0])
+    torch.cuda.synchronize()
+    delays, dropped = [], []
+    for _ in range(6):
+        hosts = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for cycles in MARKER_CYCLES:
+                hosts.append(time.perf_counter())
+                torch.cuda._sleep(cycles)
+                torch.cuda.synchronize()
+        starts = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" in e.name):
+                us = e.time_range.end - e.time_range.start
+                starts[sum(us >= edge for edge in MARKER_US)] = (
+                    e.time_range.start)
+        dropped.append(sorted(set(range(3)) - set(starts)))
+        if len(starts) < 3:
+            continue
+        late = [(hosts[k] - hosts[0]) - (starts[k] - starts[0]) / 1e6
+                for k in (1, 2)]
+        assert abs(late[1] - late[0]) < 1e-3, late
+        assert -1e-3 < late[0] < 1e-3, late
+        delays.append(late[0])
+    print("profiler marker launch delay: "
+          + ", ".join(f"{1e3 * d:.3f} ms" for d in delays)
+          + f"; markers dropped per profile: {dropped}")
+    assert delays, dropped
