@@ -930,6 +930,16 @@ def read_counts():
             - _COUNTS_BASE.get(f"launches.{name}", 0) for name in _WRAPPERS}
 
 
+def label_launches():
+    """The labelling's pass launches since the last ``reset_counts`` (its
+    ``labelling_passes`` counter: whole groups of passes up to each
+    labelling's first quiet pass, as labelling_schedule plans them)."""
+    from tee_optical_flow_torch.utils.tracing import get_counters
+
+    return (get_counters().get("labelling_passes", 0)
+            - _COUNTS_BASE.get("labelling_passes", 0))
+
+
 def check_schema(saved, n, h, w, mode="otsu"):
     """The HDF5 schema on what process_video wrote (or handed to its save
     function): shapes, dtypes, mask names, the duplicated last flow
@@ -1044,9 +1054,11 @@ def profile_clip(run_clip):
 # (cuda_lib.device_launch_count): K1 1 per call; K3 12 per call at the
 # three tiled levels and 1 at the two resident ones (3 psi rounds of 12
 # SOR iterations); the block loop 70 per call at epsilon 0.01; on top, the
-# masks' labellings (connected_components calls), the library's
-# labelling_passes device launches each: two a clip on the Otsu paths
-# (fill and size filter), two per label on the RVIO_2class paths (rv, av)
+# masks' labellings (connected_components calls), each whole groups of
+# pass launches up to its first quiet pass (labelling_schedule of a plain
+# count of the rounds each recorded mask needs):
+# two a clip on the Otsu paths (fill and size filter), two per label on the
+# RVIO_2class paths (rv, av)
 _NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
          "median_filter_5x5": 0, "sor_sweeps": 0, "connected_components": 0}
 OTSU_LABELLINGS, RVIO_LABELLINGS = 2, 4
@@ -1097,9 +1109,7 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         compute_clip_flow, process_video,
     )
     from tee_optical_flow_torch.io.dicom import read_dicom_clip
-    from tee_optical_flow_torch.ops.cuda_lib import (
-        device_launch_count, load_library,
-    )
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
 
@@ -1126,20 +1136,21 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
         log("h5py is absent: the schema is checked on the arrays handed to "
             "process_video's save function")
     labellings = path["counts"]["connected_components"]
-    design = path["device_launches"] + labellings * (
-        load_library().labelling_passes(h, w))
     clip_s, counts = [], []
     for run in range(2):
         get_stage_report(reset=True)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with first_run() if run == 0 else contextlib.nullcontext():
+        with first_run() if run == 0 else contextlib.nullcontext(), \
+                recording_labellings() as calls:
             process_video(dcm, out, segmentor, **kw)
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t0)
         counts.append(read_counts())
         dev = device_launch_count()
+        assert len(calls) == labellings, (name, len(calls))
+        design = path["device_launches"] + planned_label_launches(calls)
         log(f"process_video: {clip_s[-1]:.3f} s, launches {counts[-1]}, "
             f"{dev} device launches (the library's count; design "
             f"{design}, {labellings} labellings among them)")
@@ -1181,6 +1192,72 @@ def phase_path(name, dcm, clip, truth, has_h5py, workdir,
     return counts[1], clip_s[1], solver_s, device, saved
 
 
+def rounds_needed(mask, connectivity):
+    """Rounds of neighbour-min propagation after which no id of the (N,
+    H, W) mask changes any more, counted round by round with plain
+    PyTorch operations on the mask's device."""
+    import torch
+
+    from tee_optical_flow_torch.ops import morphology as mo
+
+    _, h, w = mask.shape
+    big = h * w
+    ids = torch.where(mask, torch.arange(big, dtype=torch.int32,
+                                         device=mask.device).reshape(1, h, w),
+                      big)
+    rounds = 0
+    while True:
+        nxt = torch.where(mask, mo._neighbor_min(ids, big, connectivity), big)
+        if torch.equal(nxt, ids):
+            return rounds
+        ids, rounds = nxt, rounds + 1
+
+
+def labelling_schedule(needed, h, w, rounds_per_pass=None):
+    """What one labelling of H x W frames runs where the last round that
+    changes an id is round ``needed`` (``rounds_needed``): (rounds run,
+    flag reads on a card, pass launches on a card). The rounds are every
+    pass's up to and with the first quiet one, at most H*W; a card
+    launches whole groups of ops/morphology.LABEL_PASSES_PER_READ passes
+    (the cap's remainder last) and reads their flags once a group.
+    ``rounds_per_pass`` is LABEL_ROUNDS_PER_PASS unless given."""
+    from tee_optical_flow_torch.ops import morphology as mo
+
+    r = rounds_per_pass or mo.LABEL_ROUNDS_PER_PASS
+    k = mo.LABEL_PASSES_PER_READ
+    total = -(-h * w // r)
+    passes = min(-(-needed // r) + 1, total)
+    reads = -(-passes // k)
+    return min(passes * r, h * w), reads, min(reads * k, total)
+
+
+@contextlib.contextmanager
+def recording_labellings():
+    """Within it, every ops/morphology.connected_components call keeps its
+    (N, H, W) mask and connectivity in the list it yields."""
+    import torch
+
+    from tee_optical_flow_torch.ops import morphology as mo
+
+    calls = []
+    inner = mo.connected_components
+
+    def recording(mask, connectivity=2):
+        m = mask.to(torch.bool).clone()
+        calls.append((m[None] if m.ndim == 2 else m, connectivity))
+        return inner(mask, connectivity)
+
+    with substituted(mo, "connected_components", recording):
+        yield calls
+
+
+def planned_label_launches(calls):
+    """The pass launches ``labelling_schedule`` plans for recorded
+    labellings, each from a plain count of the rounds its mask needs."""
+    return sum(labelling_schedule(rounds_needed(m, c), *m.shape[1:])[2]
+               for m, c in calls)
+
+
 def label_stack(n, h, w):
     """The complement of the Otsu masks of an n-frame h x w echo stack (the
     33-frame clip, its last frame repeated as the clip path buckets it) on
@@ -1202,13 +1279,12 @@ def phase_labelling():
     the card, its mean ms over 5 calls (CUDA events), its bound (the
     larger of the mask read and the ids written at the HBM rate and 5
     integer operations a pixel-round at the float32 rate), its device
-    launches per call (the library's count, which its labelling_passes
-    schedules) and the plain loop's ms (one call, host clock,
-    synchronised)."""
+    launches per call (the library's count: whole groups of passes up to
+    the first quiet one, labelling_schedule) and the plain
+    loop's ms (one call, host clock, synchronised)."""
     import torch
 
     from tee_optical_flow_torch.ops import morphology as mo
-    from tee_optical_flow_torch.ops.cuda_lib import load_library
 
     records = {}
     for n, h, w in LABEL_SHAPES:
@@ -1224,8 +1300,10 @@ def phase_labelling():
         ms = cuda_ms(lambda: mo.connected_components(mask, 1), 5)
         dev = device_launches(lambda: mo.connected_components(mask, 1),
                               LABEL_DEVICE_KERNELS)
-        assert dev == load_library().labelling_passes(h, w), dev
-        npx, rounds = n * h * w, 2 * (h + w)
+        rounds, _, launches = labelling_schedule(rounds_needed(mask, 1),
+                                                 h, w)
+        assert dev == launches, dev
+        npx = n * h * w
         bms, by = bound(LABEL_BYTES * npx, OPS_LABEL_ROUND * npx * rounds)
         rate = npx * rounds / ms / 1e6
         log(f"labelling ({n},{h},{w}) connectivity 1, {rounds} rounds: "
@@ -1257,8 +1335,11 @@ def labelling_tuning():
     label_stack's masks at both clip shapes, connectivity 1 and 2: mean
     ms over 3 calls (CUDA events), device launches per call and equality
     with the default build. The basis of csrc/labelling.cu's LB_R and
-    extended tile. Run on the card with python3 -c "import chip_smoke;
-    chip_smoke.labelling_tuning()"."""
+    extended tile. The host plans its passes by the default R
+    (ops/morphology.LABEL_ROUNDS_PER_PASS): a build with another LB_R runs
+    its own rounds a pass and stops at its first quiet pass all the same,
+    so its labels hold, and the rounds it reports do not. Run on the card
+    with python3 -c "import chip_smoke; chip_smoke.labelling_tuning()"."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -1278,7 +1359,7 @@ def labelling_tuning():
             ref = mo.connected_components(mask, connectivity)
             for defines, lib in zip(LB_VARIANTS, libs):
                 def run():
-                    return mo._label_on_card(mask, connectivity, lib)
+                    return mo._label_on_card(mask, connectivity, lib)[0]
 
                 equal = bool(torch.equal(run(), ref))
                 ms = cuda_ms(run, 3)
@@ -1287,7 +1368,6 @@ def labelling_tuning():
                     f"{connectivity} {defines or 'production'}: {ms:.3f} ms,"
                     f" {dev} device launches, equal to the default build: "
                     f"{equal}")
-                assert dev == lib.labelling_passes(h, w), dev
                 assert equal, defines
 
 
@@ -3742,15 +3822,12 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
     from tee_optical_flow_torch.models.sam import preprocess_frames
     from tee_optical_flow_torch.ops import tvl1 as tt
     from tee_optical_flow_torch.ops import warp as tw
-    from tee_optical_flow_torch.ops.cuda_lib import (
-        device_launch_count, load_library,
-    )
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
     from tee_optical_flow_torch.ops.imaging import gray_from_clip, img2uint8
     from tee_optical_flow_torch.utils import get_stage_report
     from tee_optical_flow_torch.viz.manager import VisualizationManager
 
     n, h, w = clip.shape
-    passes = load_library().labelling_passes(h, w)
     out = {}
     log(f"--- compressed DICOM and TV-L1 gamma on {n}x{h}x{w}")
     assert dicom_native.native_available(), "dicomlite did not build"
@@ -3826,7 +3903,9 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        process_video(paths[syntax], "unused.hdf5", None, config=cfg, **kw)
+        with recording_labellings() as calls:
+            process_video(paths[syntax], "unused.hdf5", None, config=cfg,
+                          **kw)
         torch.cuda.synchronize()
         clip_s = time.perf_counter() - t0
         counts, dev = read_counts(), device_launch_count()
@@ -3837,7 +3916,8 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
             f"{stage_s[syntax].get('dicom_read', float('nan')):.3f} s")
         assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
                               connected_components=OTSU_LABELLINGS), counts
-        assert dev == TV_LEVELS * TV_WARPS + OTSU_LABELLINGS * passes, dev
+        assert dev == TV_LEVELS * TV_WARPS + planned_label_launches(calls), \
+            dev
         layouts[syntax] = saved.pop("layout")
         out[f"otsu_{syntax}_clip_s"] = clip_s
     _same_layout(layouts["jpeg_lossless"], layouts["native"])
@@ -3868,7 +3948,7 @@ def phase_compressed_gamma(clip, truth, workdir, layout):
     gamma_s = time.perf_counter() - t0
     # the Otsu masks' two labellings launch the rest
     counts = read_counts()
-    dev = device_launch_count() - OTSU_LABELLINGS * passes
+    dev = device_launch_count() - label_launches()
     log(f"process_video otsu TVL1 gamma={GAMMA} (epsilon "
         f"{gcfg.tvl1_epsilon}): {gamma_s:.3f} s, launches {counts}, {dev} "
         f"device launches (at most {GAMMA_MEDIANS_EPS0}: the epsilon stop "

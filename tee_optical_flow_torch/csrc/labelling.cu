@@ -1,16 +1,17 @@
-// The masks' labelling for Hopper (sm_90a): connected components by a
-// fixed 2*(H+W) rounds of neighbour-min propagation, many rounds per
-// launch on shared-memory tiles, with a plain C interface loaded through
-// ctypes (tee_optical_flow_torch/ops/cuda_lib.py). Linked into one library
-// with tvl1.cu, whose tvl1_error_string decodes the error codes returned
-// here and whose tee_launch_count counts the launches.
+// The masks' labelling for Hopper (sm_90a): connected components by
+// neighbour-min propagation run until no id changes, many rounds per launch
+// on shared-memory tiles, with a plain C interface loaded through ctypes
+// (tee_optical_flow_torch/ops/cuda_lib.py). Linked into one library with
+// tvl1.cu, whose tvl1_error_string decodes the error codes returned here
+// and whose tee_launch_count counts the launches.
 //
 // Replaces no Pallas kernel: the JAX package labels with a lax.fori_loop
-// stencil that XLA compiles (tee_optical_flow_tpu/ops/morphology.py:49-91).
-// The plain PyTorch version of that loop (ops/morphology.
-// connected_components_plain) ran each round as six elementwise kernels
-// that moved about eight stacks of ids through device memory, at ~75% of
-// the card's bandwidth; the work itself needs far less.
+// stencil of a fixed 2*(H+W) rounds that XLA compiles
+// (tee_optical_flow_tpu/ops/morphology.py:49-91). The plain PyTorch version
+// of that loop (ops/morphology.connected_components_plain) ran each round
+// as six elementwise kernels that moved about eight stacks of ids through
+// device memory, at ~75% of the card's bandwidth; the work itself needs
+// far less.
 //
 // A round, as the plain loop computes it on a (N, H, W) stack of int32 ids
 // (big = H*W; pixels outside the image read as big, F.pad(value=big)):
@@ -28,8 +29,9 @@
 //     at 3.35 TB/s). Integer minimums run at half the float32 rate (64 a
 //     clock an SM), and the exchange between neighbouring columns costs
 //     three shared-memory accesses a pixel-round on top. On an H100 the
-//     kernel takes 37.2 ms there (chip_smoke.labelling_tuning): 740 G
-//     useful pixel-rounds a second, 1.2 T computed with the halos' 1.6x.
+//     fixed-round kernel took 37.2 ms there (chip_smoke.labelling_tuning):
+//     740 G useful pixel-rounds a second, 1.2 T computed with the halos'
+//     1.6x.
 //   * What the design does about it, following the block loop's schedule
 //     (tvl1.cu's K2_S: S steps a launch on an extended tile with a halo of
 //     S, ping-pong between launches): a pass is one launch of up to LB_R
@@ -48,13 +50,19 @@
 //     wrong, and the wrong region grows inward by one pixel a round (the
 //     cross's dependency cone lies inside the square's, so one halo serves
 //     both connectivities). After LB_R rounds the output tile is exact.
-//   * Between passes the ids ping-pong between the caller's output and one
-//     scratch stack (a tile is its neighbours' halo, so an in-place write
-//     would race); the first buffer is chosen so that the last pass writes
-//     the output. The pass count comes from the shape alone,
-//     ceil(2*(H+W) / LB_R), the last pass running the remainder: nothing is
-//     read back, and the rounds are the plain loop's, round for round, so
-//     the labels are the same bits whether or not the labelling converged.
+//   * Convergence: pass p ping-pongs from buffer (p - 1) % 2 into p % 2 (a
+//     tile is its neighbours' halo, so an in-place write would race) and
+//     sets flags[p] when a block's output tile changed. A round only lowers
+//     ids, and the output tile is exact in every round of a pass, so a
+//     thread compares the sum of its output column's ids before and after
+//     the pass (64-bit: equal sums of values that can only fall mean no
+//     value fell). A pass whose predecessor left its flag at 0 returns at
+//     once: the first quiet pass reached the fixed point, and it wrote the
+//     same ids it read, so the buffer it wrote holds the labels whatever
+//     passes follow. The host launches passes in groups and reads the
+//     group's flags after each (ops/morphology._label_on_card); the
+//     rounds are the plain loop's, pass for pass, and H*W rounds cap them.
+//     Where 2*(H+W) rounds converge, the labels are the JAX package's bits.
 //   * LB_R and the tile are compile-time constants chosen by measurement
 //     (chip_smoke.labelling_tuning rebuilds this file with -D overrides):
 //     R = 8 on 256x48, at most 85 registers a thread, three blocks an SM.
@@ -110,6 +118,8 @@ struct Pass {
   const uint8_t* mask;  // the first pass: the (N, H, W) mask
   const int* in;        // later passes: the previous pass's ids
   int* out;
+  const int* prev_flag;  // the previous pass's flag (nullptr: the first)
+  int* flag;             // set when an output tile changed
   int N, H, W, tiles_x, rounds;
 };
 
@@ -119,6 +129,8 @@ template <bool kConn8, bool kFromMask>
 __global__ void __launch_bounds__(LB_EW, LB_MIN_BLOCKS)
     label_pass_kernel(const Pass a) {
   extern __shared__ int tile[];  // [LB_EH][LB_EW], one round's values
+  // past the fixed point: nothing to do (the same for every block)
+  if (a.prev_flag != nullptr && *a.prev_flag == 0) return;
   const int x = threadIdx.x;
   const int H = a.H, W = a.W, big = H * W;
   const int gx = (blockIdx.x % a.tiles_x) * kTW - LB_R + x;
@@ -127,6 +139,8 @@ __global__ void __launch_bounds__(LB_EW, LB_MIN_BLOCKS)
   // the neighbours' columns; at the tile's edge the pixel itself
   const int xl = x > 0 ? x - 1 : x;
   const int xr = x < LB_EW - 1 ? x + 1 : x;
+  const bool col_out = x >= LB_R && x < LB_EW - LB_R;
+  bool changed = false;
   for (int f = blockIdx.y; f < a.N; f += gridDim.y) {
     const size_t frame = (size_t)f * H * W;
     int v[LB_EH];
@@ -143,6 +157,10 @@ __global__ void __launch_bounds__(LB_EW, LB_MIN_BLOCKS)
       }
       v[r] = id;
     }
+    // the output column's ids before the rounds, which can only lower them
+    unsigned long long before = 0;
+#pragma unroll
+    for (int r = LB_R; r < LB_EH - LB_R; ++r) before += (unsigned)v[r];
     for (int k = 0; k < a.rounds; ++k) {
 #pragma unroll
       for (int r = 0; r < LB_EH; ++r) tile[r * LB_EW + x] = v[r];
@@ -184,7 +202,11 @@ __global__ void __launch_bounds__(LB_EW, LB_MIN_BLOCKS)
       }
       __syncthreads();
     }
-    if (col_in && x >= LB_R && x < LB_EW - LB_R) {
+    unsigned long long after = 0;
+#pragma unroll
+    for (int r = LB_R; r < LB_EH - LB_R; ++r) after += (unsigned)v[r];
+    changed |= col_out && after != before;
+    if (col_in && col_out) {
 #pragma unroll
       for (int r = LB_R; r < LB_EH - LB_R; ++r) {
         const int gy = gy0 + r;
@@ -192,6 +214,7 @@ __global__ void __launch_bounds__(LB_EW, LB_MIN_BLOCKS)
       }
     }
   }
+  if (__syncthreads_or(changed) && x == 0) *a.flag = 1;
 }
 
 template <bool kConn8, bool kFromMask>
@@ -209,41 +232,40 @@ cudaError_t launch(const Pass& a, int tiles, cudaStream_t st) {
 
 extern "C" {
 
-// The passes (device launches) of one labelling of H x W frames.
-int labelling_passes(int H, int W) {
-  const int rounds = 2 * (H + W);
-  return (rounds + LB_R - 1) / LB_R;
-}
-
-// Labels the (N, H, W) mask (bytes 0/1) into out (N, H, W int32) with
-// 2*(H+W) rounds, the cross (connectivity 1) or the 3x3 square (2);
-// scratch holds N x H x W ints (unused, and may be nullptr, when one pass
-// does). Every launch goes on the caller's stream; nothing waits. Returns
-// the first CUDA error, with the runtime's last-error state cleared;
-// nothing is launched after it.
-int labelling_components(const uint8_t* mask, int* out, int* scratch, int N,
-                         int H, int W, int connectivity, void* stream) {
+// Runs the passes first .. first + count - 1 of one labelling of the
+// (N, H, W) mask (bytes 0/1), the cross (connectivity 1) or the 3x3 square
+// (2), at most H*W rounds in all: pass p runs LB_R rounds (the last, the
+// remainder) from the mask (p = 0) or from buffer (p - 1) % 2 into buffer
+// p % 2 (buf0, buf1: N x H x W ints each), and sets flags[p] (zeroed by the
+// caller) when it changed an id; a pass after a quiet one returns at once.
+// The labels are in the buffer of the first pass whose flag stays 0. Every
+// launch goes on the caller's stream; nothing waits. Returns the first CUDA
+// error, with the runtime's last-error state cleared; nothing is launched
+// after it.
+int labelling_group(const uint8_t* mask, int* buf0, int* buf1, int* flags,
+                    int N, int H, int W, int connectivity, int first,
+                    int count, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0) return 0;
-  const int passes = labelling_passes(H, W);
-  if (passes > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles_x = (W + kTW - 1) / kTW;
   const int tiles = tiles_x * ((H + kTH - 1) / kTH);
   const bool conn8 = connectivity == 2;
-  int rounds_left = 2 * (H + W);
-  const int* prev = nullptr;
-  for (int p = 0; p < passes; ++p) {
+  const long long cap = (long long)H * W;
+  int* bufs[2] = {buf0, buf1};
+  for (int p = first; p < first + count; ++p) {
+    const long long left = cap - (long long)p * LB_R;
+    if (left <= 0) break;
     Pass a;
     a.mask = mask;
-    a.in = prev;
-    // the pass passes - 1 - p before the end writes out when that is even
-    a.out = ((passes - 1 - p) & 1) ? scratch : out;
+    a.in = p > 0 ? bufs[(p - 1) & 1] : nullptr;
+    a.out = bufs[p & 1];
+    a.prev_flag = p > 0 ? flags + p - 1 : nullptr;
+    a.flag = flags + p;
     a.N = N;
     a.H = H;
     a.W = W;
     a.tiles_x = tiles_x;
-    a.rounds = rounds_left < LB_R ? rounds_left : LB_R;
-    rounds_left -= a.rounds;
+    a.rounds = left < LB_R ? (int)left : LB_R;
     cudaError_t e;
     if (p == 0)
       e = conn8 ? launch<true, true>(a, tiles, st)
@@ -255,7 +277,6 @@ int labelling_components(const uint8_t* mask, int* out, int* scratch, int N,
       cudaGetLastError();
       return (int)e;
     }
-    prev = a.out;
   }
   return 0;
 }

@@ -17,12 +17,14 @@ embedding on, as in flax's type promotion.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..utils.tracing import trace_stage
 from .common import Adapter, LayerNorm2d, MLPBlock, conv2d, layer_norm, linear
 from .tinyvit import window_partition, window_unpartition
 
@@ -59,7 +61,10 @@ class RelPosAttention(nn.Module):
     (B, H, W, C). The scores and the weighted sum accumulate in float32
     (the JAX package's ``preferred_element_type``); the bias is float32
     (its tables are); the softmax runs in float32 and is cast to
-    ``dtype``. ``input_size`` sets the tables' lengths (2 * size - 1)."""
+    ``dtype``. ``input_size`` sets the tables' lengths (2 * size - 1).
+    With ``span_attrs`` the attention itself, from q, k and v to the
+    weighted sum (not the two projections), runs as one ``global_attn``
+    span with those attributes (utils/tracing)."""
 
     def __init__(self, dim: int, num_heads: int,
                  input_size: Tuple[int, int] = (14, 14),
@@ -78,11 +83,21 @@ class RelPosAttention(nn.Module):
                 torch.zeros(2 * input_size[1] - 1, self.head_dim))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                span_attrs: Optional[dict] = None) -> torch.Tensor:
         b, h, w, dim = x.shape
         heads, hd = self.num_heads, self.head_dim
         qkv = linear(x, self.qkv, self.dtype).reshape(b, h * w, 3, heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, heads, N, hd)
+        with (contextlib.nullcontext() if span_attrs is None
+              else trace_stage("global_attn", **span_attrs)):
+            out = self._attend(q, k, v, h, w)
+        out = out.to(self.dtype).transpose(1, 2).reshape(b, h, w, dim)
+        return linear(out, self.proj, self.dtype)
+
+    def _attend(self, q, k, v, h: int, w: int) -> torch.Tensor:
+        """(B, heads, N, hd) q, k, v -> the float32 weighted sum."""
+        b, heads, _, hd = q.shape
         qf = q.to(torch.float32)
         attn = torch.matmul(qf, k.to(torch.float32).transpose(-2, -1)) \
             * (hd ** -0.5)
@@ -95,9 +110,7 @@ class RelPosAttention(nn.Module):
             bias = bias_h[..., :, None] + bias_w[..., None, :]
             attn = attn + bias.reshape(b, heads, h * w, h * w)
         attn = torch.softmax(attn, dim=-1).to(self.dtype)
-        out = torch.matmul(attn.to(torch.float32), v.to(torch.float32))
-        out = out.to(self.dtype).transpose(1, 2).reshape(b, h, w, dim)
-        return linear(out, self.proj, self.dtype)
+        return torch.matmul(attn.to(torch.float32), v.to(torch.float32))
 
 
 def closest_factors(n: int) -> Tuple[int, int]:
@@ -124,14 +137,18 @@ class Block(nn.Module):
     axis at every spatial location, the chunk's slices laid out on a
     near-square grid (``closest_factors``), through ``Depth_Adapter`` (no
     skip), and the result joins the spatial attention's output. A batch
-    that ``chunk`` does not divide raises ValueError."""
+    that ``chunk`` does not divide raises ValueError. A global block's
+    spatial attention is the ``global_attn`` span, attribute ``block``
+    (``index``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  window_size: int = 14, use_adapter: bool = False,
                  input_size: Tuple[int, int] = (64, 64), thd: bool = False,
-                 chunk: int = 0, dtype: torch.dtype = torch.float32) -> None:
+                 chunk: int = 0, dtype: torch.dtype = torch.float32,
+                 index: int = 0) -> None:
         super().__init__()
         self.window_size = window_size
+        self.index = index
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = RelPosAttention(
             dim, num_heads,
@@ -175,7 +192,7 @@ class Block(nn.Module):
             x = window_unpartition(wins.reshape(-1, ws * ws, c), ws, b, h, w,
                                    dims)
         else:
-            x = self.attn(x)
+            x = self.attn(x, span_attrs={"block": self.index})
         if self.use_adapter:
             x = self.Space_Adapter(x)
         if xd is not None:
@@ -220,7 +237,7 @@ class ImageEncoderViT(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio,
                   window_size=0 if i in global_attn_indexes else window_size,
                   use_adapter=i in adapter_blocks, input_size=(grid, grid),
-                  thd=thd, chunk=chunk, dtype=dtype)
+                  thd=thd, chunk=chunk, dtype=dtype, index=i)
             for i in range(depth))
         self.neck = nn.Sequential(
             nn.Conv2d(embed_dim, out_chans, 1, bias=False),

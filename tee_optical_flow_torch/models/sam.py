@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from ..ops.imaging import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.warp import resize_bilinear
+from ..utils.tracing import count, trace_stage
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
 from .quantize import (
@@ -55,13 +56,17 @@ class Sam(nn.Module):
         """images (B, 3, S, S), already normalised -> (logits (B, K, S/4,
         S/4) float32, iou_pred (B, K)). ``train`` normalises the
         encoder's batch norms by the batch (the JAX package's
-        ``Sam.__call__(train=)``); see models/common.Conv2d_BN."""
-        embeddings = self.image_encoder(images, train=train)
-        sparse, dense = self.prompt_encoder(points, boxes, masks,
-                                            batch_size=images.shape[0])
-        return self.mask_decoder(embeddings, self.prompt_encoder.
-                                 get_dense_pe(), sparse, dense,
-                                 multimask_output=multimask_output)
+        ``Sam.__call__(train=)``); see models/common.Conv2d_BN. The
+        encoder runs as one ``sam_encoder`` span, the prompt encoder and
+        the decoder as one ``mask_decoder`` span (utils/tracing)."""
+        with trace_stage("sam_encoder"):
+            embeddings = self.image_encoder(images, train=train)
+        with trace_stage("mask_decoder"):
+            sparse, dense = self.prompt_encoder(points, boxes, masks,
+                                                batch_size=images.shape[0])
+            return self.mask_decoder(embeddings, self.prompt_encoder.
+                                     get_dense_pe(), sparse, dense,
+                                     multimask_output=multimask_output)
 
 
 def preprocess_frames(frames: torch.Tensor, image_size: int = 1024
@@ -153,7 +158,11 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
     independent, so the labels are the single-device segmentor's up to
     the convolution algorithms a smaller batch may pick. A micro-batch
     not divisible by the data axis raises ShardingError. The
-    ``resident_weight_bytes`` count every replica."""
+    ``resident_weight_bytes`` count every replica.
+
+    The counter ``segmentor_frames`` (utils/tracing) adds the frames each
+    micro-batch runs through the encoder: a short clip's padding and the
+    shifted tail's overlap included."""
     model.eval()
     device = next(model.parameters()).device
     if mesh is not None:
@@ -193,6 +202,7 @@ def make_clip_segmentor(model: Sam, out_hw: Optional[Tuple[int, int]] = None,
 
     @torch.no_grad()
     def run_batch(chunk: torch.Tensor, home: torch.device) -> torch.Tensor:
+        count("segmentor_frames", chunk.shape[0])
         outs = []
         for k, dev in enumerate(devices):
             part = chunk[k * share:(k + 1) * share].to(dev)

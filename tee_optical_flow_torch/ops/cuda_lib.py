@@ -58,8 +58,7 @@ _SIGNATURES = {
     "tvl1_block_tiles": (_I, _I),
     "deepflow_resident": (_I, _I, _P),
     "deepflow_solve": (_P,) * 16 + (_I,) * 5 + (_F,) * 6 + (_P,),
-    "labelling_passes": (_I, _I),
-    "labelling_components": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "labelling_group": (_P,) * 4 + (_I,) * 6 + (_P,),
 }
 
 # the loaded libraries, by their nvcc flags

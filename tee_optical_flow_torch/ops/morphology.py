@@ -2,11 +2,14 @@
 
 Every op runs batched over the frame axis, on the device the masks lie on:
 
-  * connected components by a fixed ``2*(H+W)`` rounds of neighbour-min
-    label propagation. This is the JAX labelling round for round, so the
-    labels are bit-equal to it by construction, including its limit: it
-    is exact for components whose geodesic diameter is at most 2*(H+W).
-    On a card the rounds run in ``csrc/labelling.cu``, many per launch;
+  * connected components by neighbour-min label propagation run until no
+    label changes: passes of ``LABEL_ROUNDS_PER_PASS`` rounds up to the
+    first pass that changes nothing, at most H*W rounds. Rounds only lower
+    labels, so that pass is the fixed point, and the labels are exact for
+    any component. The JAX package runs a fixed 2*(H+W) rounds: where
+    those converge, the labels are its bits; where they do not, the fills
+    and size filters here equal scipy's and the JAX package's do not. On a
+    card the passes run in ``csrc/labelling.cu``, many rounds per launch;
     on the CPU in the plain loop;
   * component sizes by scatter-adds keyed by root label;
   * fill-holes as border reachability on the complement;
@@ -50,43 +53,85 @@ def _neighbor_min(ids: torch.Tensor, big: int, connectivity: int
     return torch.minimum(ids, m)
 
 
-def connected_components_plain(mask: torch.Tensor, connectivity: int = 2
-                               ) -> torch.Tensor:
-    """The plain version of the labelling kernel: 2*(H+W) rounds of
-    neighbour-min propagation over a (N, H, W) boolean mask, each round
-    a few PyTorch operations (the JAX package's ``lax.fori_loop``, round
-    for round). Returns (N, H, W) int32 ids as ``connected_components``
-    does."""
-    _, h, w = mask.shape
+# rounds a pass: csrc/labelling.cu's LB_R, which the card's passes run,
+# and the unit in which the plain loop looks for a change
+LABEL_ROUNDS_PER_PASS = 8
+# passes the card runs between two reads of their flags: each read is one
+# host wait; passes after the quiet one return at once on the card
+LABEL_PASSES_PER_READ = 32
+
+
+def _label_plain(mask: torch.Tensor, connectivity: int):
+    """The plain labelling loop and the rounds it ran: passes of
+    ``LABEL_ROUNDS_PER_PASS`` rounds until a pass changes no id, at most
+    H*W rounds in all."""
+    n, h, w = mask.shape
     big = h * w
     lin = torch.arange(big, dtype=torch.int32,
                        device=mask.device).reshape(1, h, w)
     ids = torch.where(mask, lin, big)
-    for _ in range(2 * (h + w)):
-        ids = torch.where(mask, _neighbor_min(ids, big, connectivity), big)
-    return ids
+    rounds = 0
+    if n == 0:
+        return ids, rounds
+    while rounds < big:
+        before = ids
+        for _ in range(min(LABEL_ROUNDS_PER_PASS, big - rounds)):
+            ids = torch.where(mask, _neighbor_min(ids, big, connectivity),
+                              big)
+            rounds += 1
+        if torch.equal(ids, before):
+            break
+    return ids, rounds
 
 
-def _label_on_card(mask: torch.Tensor, connectivity: int,
-                   lib=None) -> torch.Tensor:
-    """``labelling_components`` of ``csrc/labelling.cu`` (of ``lib``, the
-    kernel library by default) on the current stream: ceil(2*(H+W) /
-    LB_R) pass launches, the ids ping-ponging between the output and one
-    scratch stack. Reads nothing back."""
+def connected_components_plain(mask: torch.Tensor, connectivity: int = 2
+                               ) -> torch.Tensor:
+    """The plain version of the labelling kernel: neighbour-min
+    propagation over a (N, H, W) boolean mask, each round a few PyTorch
+    operations (the JAX package's ``lax.fori_loop`` round), in passes of
+    ``LABEL_ROUNDS_PER_PASS`` rounds up to the first pass that changes
+    nothing. Returns (N, H, W) int32 ids as ``connected_components``
+    does."""
+    return _label_plain(mask, connectivity)[0]
+
+
+def _label_on_card(mask: torch.Tensor, connectivity: int, lib=None):
+    """``labelling_group`` of ``csrc/labelling.cu`` (of ``lib``, the
+    kernel library by default) on the current stream, and the rounds it
+    ran: groups of ``LABEL_PASSES_PER_READ`` pass launches, the ids
+    ping-ponging between two stacks, each group's flags read back (one
+    host wait) until a pass is quiet or H*W rounds have run. Counts the
+    pass launches in ``labelling_passes``."""
     n, h, w = mask.shape
     if h * w >= 2 ** 31:
         raise ValueError(f"connected_components: {h}x{w} frames hold more "
                          "ids than int32 has")
     mask = mask.contiguous()
-    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    scratch = torch.empty_like(out)
+    bufs = [torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+            for _ in range(2)]
+    if mask.numel() == 0:
+        return bufs[0], 0
     lib = lib or load_library()
+    r = LABEL_ROUNDS_PER_PASS
+    total = -(-h * w // r)
+    flags = torch.zeros(total, dtype=torch.int32, device=mask.device)
+    done, quiet = 0, total - 1
     with launch_context(mask.device) as stream:
-        check_launch("labelling_components", lib.labelling_components(
-            ptr(mask), ptr(out), ptr(scratch), n, h, w, connectivity,
-            stream))
+        while done < total:
+            group = min(LABEL_PASSES_PER_READ, total - done)
+            check_launch("labelling_group", lib.labelling_group(
+                ptr(mask), ptr(bufs[0]), ptr(bufs[1]), ptr(flags), n, h, w,
+                connectivity, done, group, stream))
+            count("labelling_passes", group)
+            seen = flags[done:done + group].cpu()  # waits for the group
+            count_sync(mask.device)
+            quiet_passes = torch.nonzero(seen == 0)
+            if len(quiet_passes):
+                quiet = done + int(quiet_passes[0])
+                break
+            done += group
     count("launches.connected_components")
-    return out
+    return bufs[quiet % 2], min((quiet + 1) * r, h * w)
 
 
 def connected_components(mask: torch.Tensor, connectivity: int = 2
@@ -99,22 +144,22 @@ def connected_components(mask: torch.Tensor, connectivity: int = 2
 
     On a CUDA tensor this launches the labelling kernel of
     ``csrc/labelling.cu`` (counted in ``launches.connected_components``);
-    on a CPU tensor it runs ``connected_components_plain``. Both run the
-    same rounds and give the same bits. Any other device raises."""
+    on a CPU tensor it runs the plain loop. Both run the same passes up
+    to the first quiet one, give the same bits and add the rounds they
+    ran to ``labelling_rounds``. Any other device raises."""
     squeeze = mask.ndim == 2
     mask = mask.to(torch.bool)
     if squeeze:
         mask = mask[None]
-    _, h, w = mask.shape
     if mask.device.type not in ("cpu", "cuda"):
         raise ValueError("connected_components runs on the CPU or a CUDA "
                          f"card, not on {mask.device}")
     with trace_stage("labelling"):
         if mask.device.type == "cpu":
-            ids = connected_components_plain(mask, connectivity)
+            ids, rounds = _label_plain(mask, connectivity)
         else:
-            ids = _label_on_card(mask, connectivity)
-    count("labelling_rounds", 2 * (h + w))
+            ids, rounds = _label_on_card(mask, connectivity)
+    count("labelling_rounds", rounds)
     return ids[0] if squeeze else ids
 
 

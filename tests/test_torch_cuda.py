@@ -39,8 +39,10 @@ from tee_optical_flow_torch.ops import warp as tw
 from tee_optical_flow_torch.utils.tracing import (
     get_counters, get_stage_report,
 )
+from chip_smoke import labelling_schedule, rounds_needed
 from test_torch_labelling import CASES as LABEL_CASES
 from test_torch_labelling import _cases as label_cases
+from test_torch_labelling import deep_masks, scipy_clean
 
 pytestmark = pytest.mark.cuda
 
@@ -266,7 +268,9 @@ def test_device_launch_count(card, call):
     ``tvl1_block_sweeps(n)`` sweep launches, the block loop with the stop
     outer x (sweeps + 1), K3 one resident launch or, tiled, 3 psi rounds
     x (1 coefficients + 3 sweep launches of S = 4 SOR iterations), the
-    labelling ``labelling_passes(H, W)`` pass launches; a call whose
+    labelling whole groups of pass launches up to its first quiet pass
+    (``labelling_schedule`` of a plain count of the rounds needed); a
+    call whose
     launch is refused counts none. A profiler trace of the same call
     shows no more of the library's kernels (it may show fewer)."""
     from torch.profiler import ProfilerActivity, profile
@@ -294,7 +298,8 @@ def test_device_launch_count(card, call):
         "refused": (lambda: pytest.raises(RuntimeError, tk.block_loop, lib,
                                           args, epsilon=0.01, **loop), 0),
         "labelling": (lambda: mo.connected_components(args[4] > 0, 1),
-                      lib.labelling_passes(*SHAPES["small"][1:])),
+                      labelling_schedule(rounds_needed(args[4] > 0, 1),
+                                            *SHAPES["small"][1:])[2]),
     }
     fn, want = calls[call]
     counts = []
@@ -432,7 +437,7 @@ def test_sor_sweeps_raises_on_refused_launch(card):
 def _label_plain_on_card(monkeypatch):
     """Route connected_components' CUDA branch through the plain loop."""
     monkeypatch.setattr(mo, "_label_on_card",
-                        lambda m, c: mo.connected_components_plain(m, c))
+                        lambda m, c: mo._label_plain(m, c))
 
 
 def _labelling_spans():
@@ -444,14 +449,19 @@ def _labelling_spans():
 @pytest.mark.parametrize("geometry,case", LABEL_CASES)
 def test_labelling_bit_equal(card, geometry, case, connectivity):
     """The emulation's cases (tests/test_torch_labelling.py), the
-    non-converging serpentine among them, bit-equal to the plain loop on
-    the CPU; one wrapper call each."""
+    serpentine that needs more than 2*(H+W) rounds among them, bit-equal
+    to the plain loop on the CPU, rounds run included; one wrapper call
+    each."""
     mask = label_cases(geometry)[case]
     before = _launches("connected_components")
+    rounds = get_counters().get("labelling_rounds", 0)
     got = mo.connected_components(mask.to(card), connectivity)
     assert _launches("connected_components") == before + 1
-    assert torch.equal(got.cpu(), mo.connected_components(mask,
-                                                          connectivity))
+    ran = get_counters()["labelling_rounds"] - rounds
+    stack = mask if mask.ndim == 3 else mask[None]
+    ref, ref_rounds = mo._label_plain(stack, connectivity)
+    assert torch.equal(got.cpu(), ref if mask.ndim == 3 else ref[0])
+    assert ran == ref_rounds
 
 
 def _otsu_stack(h, w, device):
@@ -492,23 +502,48 @@ def test_labelling_otsu_masks_bit_equal(card, hw, monkeypatch):
 
 
 def test_labelling_waits_for_nothing(card):
-    """The wrapper reads nothing back and makes no host wait that sync
-    debug mode sees; the library counts its design's pass launches."""
+    """The wrapper waits for nothing but its counted reads of the passes'
+    flags, one a group of passes (``host_syncs``, as sync debug mode sees
+    them), and the library counts its design's pass launches: whole
+    groups up to the first quiet pass, from a plain count of the rounds
+    needed."""
+    import warnings
+
     from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
 
     mask = torch.rand((4, 97, 131), device=card) > 0.4
     mo.connected_components(mask, 1)  # builds and loads the library
     torch.cuda.synchronize()
+    want = [labelling_schedule(rounds_needed(mask, c), 97, 131)
+            for c in (1, 2)]
     lib = load_library()
     device_launch_count(lib, reset=True)
-    torch.cuda.set_sync_debug_mode("error")
+    syncs = get_counters().get("host_syncs", 0)
+    torch.cuda.set_sync_debug_mode("warn")  # the switch itself warns once
     try:
-        for connectivity in (1, 2):
-            mo.connected_components(mask, connectivity)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for connectivity in (1, 2):
+                mo.connected_components(mask, connectivity)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert device_launch_count(lib) == 2 * lib.labelling_passes(97, 131)
+    seen = [w for w in caught if "synchroniz" in str(w.message)]
+    reads = sum(r for _, r, _ in want)
+    assert len(seen) == get_counters()["host_syncs"] - syncs == reads
+    assert device_launch_count(lib) == sum(n for _, _, n in want)
+
+
+@pytest.mark.parametrize("size", [(21, 30), (96, 200)])
+def test_labelling_deep_masks_equal_scipy(card, size):
+    """A corridor of background and a serpentine of foreground that need
+    more than 2*(H+W) rounds, filled and size-filtered on the card as
+    scipy.ndimage does it on the host."""
+    masks = deep_masks(*size)
+    min_size = int(masks[1].sum()) - 5
+    got = mo.clean_binary_stack(masks.to(card), min_size=min_size)
+    assert torch.equal(got.cpu(), scipy_clean(masks, min_size))
+    assert rounds_needed(masks[1:], 1) > 2 * sum(size)
 
 
 # the SAM segmentor on the card (no kernel of this repository: library

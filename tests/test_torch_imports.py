@@ -113,14 +113,16 @@ PORT_ONLY = {"flow": {"process_folder"},
 
 
 # modules of one package only: the JAX package's Pallas kernels (the port's
-# CUDA kernels and their build and bindings stand in for them) and the
+# CUDA kernels and their build and bindings stand in for them), the
 # port's process-per-rank training (XLA inserts the JAX package's
-# collectives; its mesh is single-controller)
+# collectives; its mesh is single-controller) and the port's plain float32
+# SAM that its ViT-Det segmentor is held to
 JAX_ONLY_MODULES = {"ops.deepflow_pallas", "ops.pallas_common",
                     "ops.tvl1_pallas"}
 PORT_ONLY_MODULES = {"ops.cuda_lib", "ops.deepflow_kernels",
                      "ops.tvl1_kernels", "parallel.collectives",
-                     "parallel.launch", "train.mesh_steps"}
+                     "parallel.launch", "train.mesh_steps",
+                     "models.vitdet_oracle"}
 
 
 def _module_names(package):
