@@ -101,7 +101,14 @@ arguments the TV-L1 and the DeepFlow path handed them):
   * the masks' labelling kernel (phase_labelling, csrc/labelling.cu) on
     the complement of the Otsu masks of 40-frame 480x640 and 600x800
     stacks, connectivity 1 as the fills label them: bit-equal to the
-    plain loop, its time, bound and device launches.
+    plain loop, its time, bound and device launches;
+  * ViT-Det's attention kernel (phase_attention,
+    csrc/relpos_attention.cu) at vit_h's and vit_b's global and windowed
+    shapes: its error and the plain version's against a float32 attention,
+    its time with and without the bias projections, the plain version's, torch's
+    scaled_dot_product_attention with the bias materialised (a yardstick
+    the port never calls), its bound and device launches; its launches on
+    the vit_b paths and in the exported program (phase_vitdet).
 
 It checks what comes out (schema, wall end-point error against the
 analytic motion, launch counts per path, and the device launches per
@@ -109,7 +116,9 @@ call and per clip from the kernel library's own counter, which a
 profiler trace may only undercount). Imports nothing of JAX.
 ``k3_tuning()`` and ``k2_tuning()`` (run on their own) time K3 and the
 block loop under builds with other tiles and steps per launch;
-``vitdet_check()`` runs phase_vitdet alone, ``compressed_gamma_check()``
+``attention_tuning()`` times the attention kernel's geometries;
+``attention_check()`` runs phase_attention alone,
+``vitdet_check()`` phase_vitdet, ``compressed_gamma_check()``
 phase_compressed_gamma (after phase_cohort, for its dataset),
 ``mesh_check()`` phase_mesh, ``baselines_check()`` phase_baselines and
 ``train_mesh_check()`` phase_train_mesh;
@@ -182,6 +191,34 @@ LB_VARIANTS = (
 OPS_LABEL_ROUND, LABEL_BYTES = 5, 1 + 4
 # the clip cells' shapes: 33 frames bucket to 40
 LABEL_SHAPES = ((40, CLIP_H, CLIP_W), (40, K2_H, K2_W))
+
+# the attention kernel (csrc/relpos_attention.cu) at the shapes it runs in
+# the served encoders (B, heads, h, w, hd): vit_h's global block on the SAM
+# cell's micro-batch of 4 and a windowed block's 4 frames x 25 windows of
+# 14x14 (hd 80), and vit_b's two (hd 64, the other geometry of the
+# windowed blocks: 8 of vit_b's 12 blocks, 20 of vit_l's 24)
+ATTN_SHAPES = {"vit_h_global": (4, 16, 64, 64, 80),
+               "vit_h_window": (100, 16, 14, 14, 80),
+               "vit_b_global": (4, 12, 64, 64, 64),
+               "vit_b_window": (100, 12, 14, 14, 64)}
+# grids between a window and a global block, one whose key tiles lie
+# within a grid row (16x64), and the depth attention's 2x2, at vit_h's
+# widths: where attention_tuning weighs the geometries
+# (ops/attention_kernels.attention_geometry)
+ATTN_TUNING_SHAPES = {"depth_2x2": (1024, 16, 2, 2, 80),
+                      "grid_24x24": (4, 16, 24, 24, 80),
+                      "grid_28x28": (4, 16, 28, 28, 80),
+                      "grid_16x64": (4, 16, 16, 64, 80),
+                      "grid_32x32": (4, 16, 32, 32, 80),
+                      "grid_36x36": (4, 16, 36, 36, 80),
+                      "grid_40x40": (4, 16, 40, 40, 80),
+                      "grid_48x48": (4, 16, 48, 48, 80)}
+ATTN_OPS_PER_S = 989.4e12
+# vit_b's transformer blocks: one attention kernel launch each a micro-batch
+VITB_BLOCKS = 12
+# the tables' spread as the SAM cell draws them (sam_clip.draw_state):
+# REL_POS_SPREAD / sqrt(hd); dense weights at 1/sqrt(fan-in), biases 0.1
+REL_POS_SPREAD, ATTN_BIAS_SPREAD = 2.0, 0.1
 
 # flow sanity on the wall: end-point error against the analytic motion.
 # The port's CPU run of the same clip at the same settings measured a
@@ -906,7 +943,8 @@ def phase_k1(captured, calls):
 
 _COUNTS_BASE = {}
 _WRAPPERS = ("tvl1_outer_loop", "tvl1_block_loop", "tvl1_inner_block",
-             "median_filter_5x5", "sor_sweeps", "connected_components")
+             "median_filter_5x5", "sor_sweeps", "connected_components",
+             "rel_pos_attention")
 
 
 def reset_counts():
@@ -1060,7 +1098,8 @@ def profile_clip(run_clip):
 # two a clip on the Otsu paths (fill and size filter), two per label on the
 # RVIO_2class paths (rv, av)
 _NONE = {"tvl1_outer_loop": 0, "tvl1_block_loop": 0, "tvl1_inner_block": 0,
-         "median_filter_5x5": 0, "sor_sweeps": 0, "connected_components": 0}
+         "median_filter_5x5": 0, "sor_sweeps": 0, "connected_components": 0,
+         "rel_pos_attention": 0}
 OTSU_LABELLINGS, RVIO_LABELLINGS = 2, 4
 PATHS = {
     "TVL1": dict(mode="otsu", algo="TVL1",
@@ -1369,6 +1408,237 @@ def labelling_tuning():
                     f" {dev} device launches, equal to the default build: "
                     f"{equal}")
                 assert equal, defines
+
+
+def attention_module(heads, hd, h, w, dtype, device, seed=0):
+    """A RelPosAttention on an h x w grid with its weights drawn as the SAM
+    cell draws a checkpoint: dense weights at 1/sqrt(fan-in), biases at
+    ATTN_BIAS_SPREAD, tables at REL_POS_SPREAD / sqrt(hd)."""
+    import math
+
+    import torch
+
+    from tee_optical_flow_torch.models.image_encoder import RelPosAttention
+
+    gen = torch.Generator().manual_seed(seed)
+    m = RelPosAttention(heads * hd, heads, input_size=(h, w), dtype=dtype)
+    with torch.no_grad():
+        for lin in (m.qkv, m.proj):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen)
+                             / math.sqrt(lin.weight.shape[1]))
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gen)
+                           * ATTN_BIAS_SPREAD)
+        for t in (m.rel_pos_h, m.rel_pos_w):
+            t.copy_(torch.randn(t.shape, generator=gen)
+                    * REL_POS_SPREAD / math.sqrt(hd))
+    return m.to(device)
+
+
+def attention_qkv(m, b, h, w, seed=1):
+    """The module's qkv projection of (b, h, w, dim) standard normal tokens
+    (what the block's LayerNorm hands it), reshaped as its forward does:
+    (b, N, 3, heads, hd)."""
+    import torch
+
+    from tee_optical_flow_torch.models.common import linear
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, w, m.num_heads * m.head_dim), generator=gen)
+    return linear(x.to(m.qkv.weight.device), m.qkv, m.dtype).reshape(
+        b, h * w, 3, m.num_heads, m.head_dim)
+
+
+def attention_bound(b, heads, h, w, hd):
+    """(least ms, what bounds it) of one kernel launch: its own work, the
+    scores and the weighted sum (4 B heads N^2 hd operations) at the dense
+    bfloat16 peak against what it reads and writes at the HBM rate (q, k,
+    v and the output in bfloat16, the two float32 bias projections)."""
+    n = h * w
+    ops = 4 * b * heads * n * n * hd
+    nbytes = 4 * b * n * heads * hd * 2 + b * heads * n * (h + w) * 4
+    t_ops = ops / ATTN_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def attention_span_bound(b, heads, h, w, hd):
+    """Least ms of what the global_attn span wraps at the shape, counts_sam
+    .global_attn_least_s's count: the kernel's work and the bias
+    projections' operations (2 B heads N (h + w) hd) at the dense
+    bfloat16 peak against q, k, v and the output in bfloat16 and the two
+    tables in float32 at the HBM rate."""
+    n = h * w
+    ops = 4 * b * heads * n * n * hd + 2 * b * heads * n * (h + w) * hd
+    nbytes = 4 * b * n * heads * hd * 2 + (2 * h - 1 + 2 * w - 1) * hd * 4
+    return max(ops / ATTN_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def attention_args(m, qkv, h, w):
+    """The kernel wrapper's arguments for the module's qkv: the bias
+    projections computed as the module computes them for the kernel."""
+    return (qkv, *m._bias_terms(qkv[:, :, 0], h, w), h, w,
+            m.head_dim ** -0.5)
+
+
+def attention_float32(m, qkv, h, w):
+    """The attention of the module's bfloat16 qkv (B, N, 3, heads, hd) in
+    float32 with no rounding, (B, N, heads, hd): the bias from the JAX
+    package's einsums over the float32 queries and tables (not from the
+    module's ``_bias_terms``, which feeds the kernel), the scores, softmax
+    and weighted sum in float32."""
+    import torch
+
+    from tee_optical_flow_torch.models.image_encoder import rel_pos_embed
+
+    q, k, v = (t.to(torch.float32) for t in qkv.permute(2, 0, 3, 1, 4))
+    b, heads, n, hd = q.shape
+    qr = q.reshape(b, heads, h, w, hd)
+    bias_h = torch.einsum("byhwc,hkc->byhwk", qr,
+                          rel_pos_embed(m.rel_pos_h, h, h))
+    bias_w = torch.einsum("byhwc,wkc->byhwk", qr,
+                          rel_pos_embed(m.rel_pos_w, w, w))
+    s = torch.matmul(q, k.transpose(-2, -1)) * (hd ** -0.5)
+    s += (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n)
+    return torch.matmul(torch.softmax(s, dim=-1), v).transpose(1, 2)
+
+
+def phase_attention():
+    """The attention kernel (csrc/relpos_attention.cu) at ATTN_SHAPES:
+    its error and the plain version's (``_attend``) against a float32
+    attention of the same bfloat16 q, k, v with the bias from the einsums
+    (attention_float32; max and mean abs, the kernel's at most 1.25 times
+    the plain version's), its mean ms (CUDA events) alone against its own
+    bound (attention_bound: ``roofline``) and with the bias projections
+    (what the global_attn span wraps: ``module_ms`` against
+    attention_span_bound, ``span_roofline``), the plain version's ms,
+    torch's scaled_dot_product_attention with the bias materialised in
+    bfloat16 as the yardstick (library_ms; the port never calls it), and
+    the device launches a call (the library's count)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tee_optical_flow_torch.ops import attention_kernels as ak
+    from tee_optical_flow_torch.ops.cuda_lib import device_launch_count
+
+    records = {}
+    for name, (b, heads, h, w, hd) in ATTN_SHAPES.items():
+        m = attention_module(heads, hd, h, w, torch.bfloat16, "cuda")
+        n = h * w
+        with torch.no_grad():
+            qkv = attention_qkv(m, b, h, w)
+            args = attention_args(m, qkv, h, w)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)
+            ref = attention_float32(m, qkv, h, w).to(torch.float64)
+            got = ak.rel_pos_attention(*args).to(torch.float64)
+            plain = m._attend(q, k, v, h, w).transpose(1, 2).to(
+                torch.bfloat16).to(torch.float64)
+            err, plain_err = (got - ref).abs(), (plain - ref).abs()
+            errors = dict(max_abs_err=float(err.max()),
+                          mean_abs_err=float(err.mean()),
+                          plain_max_abs_err=float(plain_err.max()),
+                          plain_mean_abs_err=float(plain_err.mean()))
+            del got, plain, ref, err, plain_err
+            reps = 20 if n >= 4096 else 50
+            ms = cuda_ms(lambda: ak.rel_pos_attention(*args), reps)
+            module_ms = cuda_ms(lambda: m._attend_kernel(qkv, h, w), reps)
+            plain_ms = cuda_ms(lambda: m._attend(q, k, v, h, w), 3)
+            mask = (args[1][..., :, None] + args[2][..., None, :]).reshape(
+                b, heads, n, n).to(torch.bfloat16)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), reps)
+            del mask
+            device_launch_count(reset=True)
+            ak.rel_pos_attention(*args)
+            torch.cuda.synchronize()
+            dev = device_launch_count()
+        bms, by = attention_bound(b, heads, h, w, hd)
+        span_bms = attention_span_bound(b, heads, h, w, hd)
+        log(f"rel_pos_attention {name} (B {b}, heads {heads}, {h}x{w}, hd "
+            f"{hd}): {ms:.4f} ms kernel ({100 * bms / ms:.1f}% of its bound"
+            f" {bms:.4f} ms, {by}), {module_ms:.4f} ms with the bias "
+            f"projections ({100 * span_bms / module_ms:.1f}% of the span's "
+            f"{span_bms:.4f} ms), {plain_ms:.3f} ms plain, {library_ms:.4f} "
+            f"ms SDPA with the bias materialised; error against float32 "
+            f"{errors['max_abs_err']:.3g} max, {errors['mean_abs_err']:.3g}"
+            f" mean (plain {errors['plain_max_abs_err']:.3g}, "
+            f"{errors['plain_mean_abs_err']:.3g}); {dev} device launch(es)")
+        assert errors["max_abs_err"] <= 1.25 * errors["plain_max_abs_err"], \
+            (name, errors)
+        assert errors["mean_abs_err"] <= 1.25 * errors[
+            "plain_mean_abs_err"], (name, errors)
+        assert dev == 1, dev
+        records[name] = dict(
+            shape=[b, heads, n, hd], grid=[h, w], ms=ms, module_ms=module_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+            bound_by=by, roofline=bms / ms, span_bound_ms=span_bms,
+            span_roofline=span_bms / module_ms, device_launches=dev,
+            geometry=list(ak.attention_geometry(w)), **errors)
+        del m, qkv, args, q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def attention_check() -> int:
+    """phase_attention alone, after the kernels' build (nvcc's resource
+    report of the attention kernels first): prints its record as one JSON
+    line. Run on the card with python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.attention_check())"."""
+    import torch
+
+    from tee_optical_flow_torch.ops import cuda_lib
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    phase_setup()
+    report = cuda_lib.build_info["ptxas"].splitlines()
+    for i, line in enumerate(report):
+        if "relpos_attention" in line:
+            log(" | ".join(x.strip() for x in report[i:i + 4]))
+    print(json.dumps({"attention": phase_attention()}))
+    return 0
+
+
+def attention_tuning(shapes=None):
+    """The attention kernel in each geometry the source can build (8 warps
+    of one 16-row tile, 4 of two; the within-a-row bias path where the
+    grid allows it, and the other), from the library built with
+    RPA_ALL_GEOMETRIES, at ATTN_SHAPES and ATTN_TUNING_SHAPES: mean ms
+    (CUDA events), the share of the kernel's bound, the gap from the
+    default geometry's output. The basis of ops/attention_kernels
+    .attention_geometry. Run on the card with python3 -c "import
+    chip_smoke; chip_smoke.attention_tuning()"."""
+    import torch
+
+    from tee_optical_flow_torch.ops import attention_kernels as ak
+    from tee_optical_flow_torch.ops.cuda_lib import load_library
+
+    log(f"card: {phase_setup()[0]}")
+    lib = load_library({"RPA_ALL_GEOMETRIES": 1})
+    for name, (b, heads, h, w, hd) in (
+            shapes or {**ATTN_SHAPES, **ATTN_TUNING_SHAPES}).items():
+        m = attention_module(heads, hd, h, w, torch.bfloat16, "cuda")
+        bms, _ = attention_bound(b, heads, h, w, hd)
+        with torch.no_grad():
+            args = attention_args(m, attention_qkv(m, b, h, w), h, w)
+            ref = ak.rel_pos_attention(*args).float()
+            default = ak.attention_geometry(w)
+            for geometry in ((8, 1), (4, 2)):
+                for tile_row in sorted({False, w % ak.KEY_TILE == 0}):
+                    g = (*geometry, tile_row)
+
+                    def run():
+                        return ak._launch(*args, g, lib)
+
+                    diff = float((run().float() - ref).abs().max())
+                    ms = cuda_ms(run, 10)
+                    log(f"attention tuning {name} (N {h * w}) geometry {g}"
+                        f"{' (default)' if g == default else ''}: {ms:.4f} "
+                        f"ms ({100 * bms / ms:.1f}% of {bms:.4f} ms), max-abs"
+                        f" {diff:.3g} from the default geometry's")
+        del m, args, ref
+        torch.cuda.empty_cache()
 
 
 def phase_saliency(clip):
@@ -3334,6 +3604,7 @@ def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
     from tee_optical_flow_torch.cli import process as cli
     from tee_optical_flow_torch.config import DeviceConfig, PipelineConfig
     from tee_optical_flow_torch.flow import pipeline as pl
+    from tee_optical_flow_torch.utils.tracing import get_stage_report
     from tee_optical_flow_torch.io.hdf5 import optical_flow_layout
 
     n, h, w = clip.shape
@@ -3371,6 +3642,7 @@ def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
         return segs[0]
 
     reset_counts()
+    encoders = get_stage_report().get("sam_encoder", {}).get("calls", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with substituted(pl, "process_video", timed_video), \
@@ -3378,14 +3650,19 @@ def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
         rc = cli.main(argv, _save_fn=None if has_h5py else capture)
     torch.cuda.synchronize()
     counts = read_counts()
+    encoders = get_stage_report()["sam_encoder"]["calls"] - encoders
     peak = torch.cuda.max_memory_allocated() / 1e9
     seg, load_s = segs
     log(f"{tag}: cli.process {' '.join(argv)}: rc {rc}, clip "
         f"{clip_s[0]:.3f} s (load_segmentor {load_s:.3f} s), max memory "
         f"allocated {peak:.2f} GB; launches {counts}")
     assert rc == 0, rc
-    assert counts == dict(_NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
-                          connected_components=RVIO_LABELLINGS), counts
+    # vit_b in bfloat16 (int8 weights too) under no_grad: the attention
+    # kernel once a block, VITB_BLOCKS a micro-batch through the encoder
+    assert encoders > 0 and counts == dict(
+        _NONE, tvl1_outer_loop=TV_LEVELS * TV_WARPS,
+        connected_components=RVIO_LABELLINGS,
+        rel_pos_attention=VITB_BLOCKS * encoders), (counts, encoders)
     if has_h5py:
         (path,) = [os.path.join(r, f) for r, _, fs in os.walk(out)
                    for f in fs if f.endswith(".hdf5")]
@@ -3397,6 +3674,7 @@ def vitdet_cli_run(clip, workdir, has_h5py, model_dtype, ckpt, dcm_dir,
     return seg, dict(clip_s=clip_s[0], load_segmentor_s=load_s,
                      max_memory_gb=peak,
                      launches=counts["tvl1_outer_loop"],
+                     attention_launches=counts["rel_pos_attention"],
                      labels=labels[0])
 
 
@@ -3431,6 +3709,7 @@ def phase_vitdet(clip, workdir, has_h5py):
     from tee_optical_flow_torch.train.data import (
         PublicDataset, batch_iterator,
     )
+    from tee_optical_flow_torch.utils.tracing import get_counters
 
     assert not (torch.backends.cuda.matmul.allow_tf32
                 or torch.backends.cudnn.allow_tf32)
@@ -3695,6 +3974,12 @@ def phase_vitdet(clip, workdir, has_h5py):
         logits_1, iou_1 = model(x1)
     eager = logits_1.argmax(1).to(torch.uint8)
     export_agree = float((lab_e == eager).float().mean())
+    # the exported program records the attention kernel and runs it
+    before = get_counters().get("launches.rel_pos_attention", 0)
+    with torch.no_grad():
+        exported(x1)
+    export_attention = get_counters()["launches.rel_pos_attention"] - before
+    assert export_attention == VITB_BLOCKS, export_attention
     log(f"vit_b predictor on one {h}x{w} frame (bfloat16): set_image "
         f"{set_ms:.3f} ms, predict {predict_ms:.3f} ms (CUDA events, host "
         f"work included); SamAutomaticMaskGenerator({VITDET_AMG_POINTS}x"
@@ -3704,7 +3989,8 @@ def phase_vitdet(clip, workdir, has_h5py):
         f"program's labels equal eager on {export_agree:.6f}, iou max-abs "
         f"{float((iou_e - iou_1).abs().max()):.3g}")
     assert export_agree == 1.0, export_agree
-    out["predictor"] = dict(set_image_ms=set_ms, predict_ms=predict_ms,
+    out["predictor"] = dict(export_attention_launches=export_attention,
+                            set_image_ms=set_ms, predict_ms=predict_ms,
                             amg_records=len(records), amg_s=amg_s,
                             export_s=export_s, export_agree=export_agree)
     del model, pred, exported
@@ -4636,6 +4922,7 @@ def main() -> int:
     clip, truth = echo_clip(CLIP_FRAMES, CLIP_H, CLIP_W)
     records = phase_kernels(clip, truth)
     labelling = phase_labelling()
+    attention = phase_attention()
     k1_args, k1_calls, k3_args, k3_calls = {}, {}, {}, {}
     k2_args, k2_calls, sam_labels = {}, {}, []
     clips = {"TVL1": (clip, truth), "deepflow": (clip, truth),
@@ -4787,6 +5074,22 @@ def main() -> int:
             "launches": counts["connected_components"],
             "path": f"{path}: otsu masks {n}x{h}x{w}, connectivity 1",
             "library_ms": None, **labelling[f"{n}x{h}x{w}"]})
+    # the attention at vit_h's and vit_b's shapes; its launches a clip on
+    # the vit_b path served through cli.process (one a block and
+    # micro-batch)
+    for name, rec in attention.items():
+        kernels.append({
+            "name": "rel_pos_attention", "route": "cuda",
+            "source": "tee_optical_flow_torch/csrc/relpos_attention.cu",
+            "replaces": "none: the JAX package leaves the attention to XLA "
+                        "(tee_optical_flow_tpu/models/image_encoder.py); "
+                        "plain version models/image_encoder.RelPosAttention"
+                        "._attend",
+            "launches": vitdet["vit_b_served"]["bfloat16"][
+                "attention_launches"],
+            "path": f"{name} attention; launches: vit_b bfloat16 "
+                    f"through cli.process, one clip",
+            **rec})
     for name, (_, clip_s, solver_s, _, _) in results.items():
         log(f"{name}: clip_s {clip_s:.3f} solver_s {solver_s:.3f}")
     sam_clip_s = results["SAM"][1]

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops import attention_kernels
 from ..utils.tracing import trace_stage
 from .common import Adapter, LayerNorm2d, MLPBlock, conv2d, layer_norm, linear
 from .tinyvit import window_partition, window_unpartition
@@ -50,10 +51,15 @@ def rel_pos_embed(rel_pos: torch.Tensor, q_size: int, k_size: int
         hi = torch.clamp(lo + 1, max=n - 1)
         frac = (pos - lo)[:, None]
         rel_pos = rel_pos[lo] * (1.0 - frac) + rel_pos[hi] * frac
-    q_coords = torch.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = torch.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
+    # the indexes are made where the table lies: a copy from the host would
+    # wait for the card at every call
+    dev = rel_pos.device
+    q_coords = torch.arange(q_size, device=dev)[:, None] \
+        * max(k_size / q_size, 1.0)
+    k_coords = torch.arange(k_size, device=dev)[None, :] \
+        * max(q_size / k_size, 1.0)
     rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[rel.to(torch.int64).to(rel_pos.device)]
+    return rel_pos[rel.to(torch.int64)]
 
 
 class RelPosAttention(nn.Module):
@@ -64,7 +70,12 @@ class RelPosAttention(nn.Module):
     ``dtype``. ``input_size`` sets the tables' lengths (2 * size - 1).
     With ``span_attrs`` the attention itself, from q, k and v to the
     weighted sum (not the two projections), runs as one ``global_attn``
-    span with those attributes (utils/tracing)."""
+    span with those attributes (utils/tracing).
+
+    Where ``takes_kernel`` holds (a bfloat16 module on a card, no
+    gradient asked for) the attention is one launch of
+    ``csrc/relpos_attention.cu`` (ops/attention_kernels); elsewhere the
+    plain version, ``_attend``."""
 
     def __init__(self, dim: int, num_heads: int,
                  input_size: Tuple[int, int] = (14, 14),
@@ -88,15 +99,64 @@ class RelPosAttention(nn.Module):
         b, h, w, dim = x.shape
         heads, hd = self.num_heads, self.head_dim
         qkv = linear(x, self.qkv, self.dtype).reshape(b, h * w, 3, heads, hd)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, heads, N, hd)
         with (contextlib.nullcontext() if span_attrs is None
               else trace_stage("global_attn", **span_attrs)):
-            out = self._attend(q, k, v, h, w)
-        out = out.to(self.dtype).transpose(1, 2).reshape(b, h, w, dim)
+            if self.takes_kernel(qkv):
+                out = self._attend_kernel(qkv, h, w)
+            else:
+                q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, heads, N, hd)
+                out = self._attend(q, k, v, h, w).transpose(1, 2)
+        out = out.to(self.dtype).reshape(b, h, w, dim)
         return linear(out, self.proj, self.dtype)
 
+    def takes_kernel(self, qkv: torch.Tensor) -> bool:
+        """Whether the attention of ``qkv`` runs in the kernel: a tensor on
+        a card, a bfloat16 module (the kernel would lower a float32
+        module's precision) and no gradient to record (the kernel has no
+        backward). A CPU tensor, a float32 module and a call that needs
+        gradients (fine-tuning, LoRA) take the plain version."""
+        if qkv.device.type != "cuda" or self.dtype != torch.bfloat16:
+            return False
+        return not (torch.is_grad_enabled() and (
+            qkv.requires_grad
+            or any(p.requires_grad for p in self.parameters(recurse=False))))
+
+    def _bias_terms(self, q: torch.Tensor, h: int, w: int):
+        """The two float32 bias projections of the (B, N, heads, hd)
+        queries on the h x w grid, q . rel_h and q . rel_w over hd (the JAX
+        package's einsums "byhwc,hkc->byhwk" and "byhwc,wkc->byhwk"), each
+        as one batched product over the grid axis its table depends on. One
+        float32 copy of the queries, laid out (w, B, heads, h, hd), is both
+        products' operand by strides: its grid rows are a batch of (w B
+        heads, hd) matrices, its grid columns one of (B heads h, hd)
+        matrices. Returns (B, heads, h, w, h) and (B, heads, h, w, w)
+        views, which the kernel reads by strides."""
+        b, _, heads, hd = q.shape
+        rh = rel_pos_embed(self.rel_pos_h, h, h)  # (h, h, hd)
+        rw = rel_pos_embed(self.rel_pos_w, w, w)  # (w, w, hd)
+        by_col = q.reshape(b, h, w, heads, hd).permute(2, 0, 3, 1, 4)
+        qf = torch.empty(by_col.shape, dtype=torch.float32, device=q.device)
+        qf.copy_(by_col)
+        by_row = qf.permute(3, 0, 1, 2, 4).reshape(h, w * b * heads, hd)
+        bias_h = torch.bmm(by_row, rh.transpose(1, 2))
+        bias_w = torch.bmm(qf.view(w, b * heads * h, hd), rw.transpose(1, 2))
+        return (bias_h.view(h, w, b, heads, h).permute(2, 3, 0, 1, 4),
+                bias_w.view(w, b, heads, h, w).permute(1, 2, 3, 0, 4))
+
+    def _attend_kernel(self, qkv: torch.Tensor, h: int, w: int
+                       ) -> torch.Tensor:
+        """(B, N, 3, heads, hd) bfloat16 qkv on a card -> the bfloat16
+        (B, N, heads, hd) weighted sum, in ``csrc/relpos_attention.cu``."""
+        if not self.use_rel_pos:
+            raise ValueError("the attention kernel takes the relative "
+                             "position bias; this module has none")
+        bias_h, bias_w = self._bias_terms(qkv[:, :, 0], h, w)
+        return attention_kernels.rel_pos_attention(
+            qkv, bias_h, bias_w, h, w, self.head_dim ** -0.5)
+
     def _attend(self, q, k, v, h: int, w: int) -> torch.Tensor:
-        """(B, heads, N, hd) q, k, v -> the float32 weighted sum."""
+        """(B, heads, N, hd) q, k, v -> the float32 weighted sum: the plain
+        version of the kernel."""
         b, heads, _, hd = q.shape
         qf = q.to(torch.float32)
         attn = torch.matmul(qf, k.to(torch.float32).transpose(-2, -1)) \

@@ -120,9 +120,9 @@ PORT_ONLY = {"flow": {"process_folder"},
 JAX_ONLY_MODULES = {"ops.deepflow_pallas", "ops.pallas_common",
                     "ops.tvl1_pallas"}
 PORT_ONLY_MODULES = {"ops.cuda_lib", "ops.deepflow_kernels",
-                     "ops.tvl1_kernels", "parallel.collectives",
-                     "parallel.launch", "train.mesh_steps",
-                     "models.vitdet_oracle"}
+                     "ops.tvl1_kernels", "ops.attention_kernels",
+                     "parallel.collectives", "parallel.launch",
+                     "train.mesh_steps", "models.vitdet_oracle"}
 
 
 def _module_names(package):
