@@ -53,7 +53,7 @@
 //     choice between the variants is a rule about sizes only: both give
 //     the same bits. On an H100 the tiled route ties it at 39x60x80 and
 //     takes twice its time at 39x30x40, in 12 launches instead of one
-//     (chip_smoke.k3_tuning).
+//     (PERF.md section 6, one-off measurements).
 //
 // Red-black in shared memory: a red pixel's four neighbours are black and
 // the reverse, so a half sweep reads only pixels it does not write, apart
@@ -82,9 +82,9 @@ extern "C" unsigned long long tee_launch_count;
 
 // The tiled route's shape, chosen by measurement: K3_S SOR iterations (2S
 // half sweeps) per sweep launch on a K3_EW x K3_EH extended tile (the tile
-// plus a halo of 2S), swept by K3_THREADS threads. chip_smoke.k3_tuning
-// rebuilds this file with -D overrides to time other shapes, and with
-// K3_RESIDENT=0, which sends every size through the tiled route.
+// plus a halo of 2S), swept by K3_THREADS threads, timed against other
+// shapes in builds with -D overrides (PERF.md section 6, one-off
+// measurements); K3_RESIDENT=0 sends every size through the tiled route.
 #ifndef K3_S
 #define K3_S 4
 #endif

@@ -29,7 +29,7 @@
 //     at 3.35 TB/s). Integer minimums run at half the float32 rate (64 a
 //     clock an SM), and the exchange between neighbouring columns costs
 //     three shared-memory accesses a pixel-round on top. On an H100 the
-//     fixed-round kernel took 37.2 ms there (chip_smoke.labelling_tuning):
+//     fixed-round kernel took 37.2 ms there (PERF.md section 6):
 //     740 G useful pixel-rounds a second, 1.2 T computed with the halos'
 //     1.6x.
 //   * What the design does about it, following the block loop's schedule
@@ -64,7 +64,8 @@
 //     rounds are the plain loop's, pass for pass, and H*W rounds cap them.
 //     Where 2*(H+W) rounds converge, the labels are the JAX package's bits.
 //   * LB_R and the tile are compile-time constants chosen by measurement
-//     (chip_smoke.labelling_tuning rebuilds this file with -D overrides):
+//     (builds with -D overrides timed on an H100; PERF.md section 6,
+//     one-off measurements):
 //     R = 8 on 256x48, at most 85 registers a thread, three blocks an SM.
 //     Taller tiles cut the halo's share but take registers: R = 16 on
 //     256x64 at two blocks an SM ran 4-20% slower, on 256x96 at one block

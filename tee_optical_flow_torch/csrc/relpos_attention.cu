@@ -41,10 +41,11 @@
 //     (the windowed blocks' 14 x 14, the depth attention's 2 x 2) a table in
 //     shared memory gives each key's two offsets into the row. The
 //     exponential is expf (no approximate exp, no fast math).
-//   * What the measurements on an H100 taught (chip_smoke.attention_tuning
-//     and variant builds with a phase removed): occupancy and the products'
-//     scheduling decide, not the softmax's arithmetic (without expf the
-//     global shape ran 15% faster, without the row sums' adds no faster).
+//   * What the measurements on an H100 taught (a sweep of the geometries
+//     and variant builds with a phase removed; PERF.md section 6): occupancy
+//     and the products' scheduling decide, not the softmax's arithmetic
+//     (without expf the global shape ran 15% faster, without the row sums'
+//     adds no faster).
 //     q's fragments come straight from device memory into registers, the
 //     bias rows by cp.async with the first k and v tile, so a block holds
 //     only k, v and the bias in shared memory; 8-warp blocks are capped at
@@ -85,13 +86,6 @@
 extern "C" unsigned long long tee_launch_count;
 
 namespace {
-
-// 1: build every geometry (8 x 1 and 4 x 2 warps x row tiles, each with
-// and without the within-a-row bias path) for measurements; 0: the two
-// that attention_geometry picks
-#ifndef RPA_ALL_GEOMETRIES
-#define RPA_ALL_GEOMETRIES 0
-#endif
 
 constexpr int kBc = 64;   // keys a tile
 constexpr int kPad = 8;   // bfloat16 padding of a shared q, k or v row
@@ -546,16 +540,11 @@ cudaError_t launch_geometry(const Params& p, int B, int warps, int m_tiles,
   const long long blocks = (long long)q.tiles * B * p.heads;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   // the production pairs (ops/attention_kernels.attention_geometry):
-  // 4 x 2 within a grid row, 8 x 1 across rows; the other two only in a
-  // build with RPA_ALL_GEOMETRIES (chip_smoke.attention_tuning)
+  // 4 x 2 within a grid row, 8 x 1 across rows
   if (kTileRow && warps == 4 && m_tiles == 2)
     return launch<HD, 4, 2, kTileRow>(q, blocks, st);
   if (!kTileRow && warps == 8 && m_tiles == 1)
     return launch<HD, 8, 1, kTileRow>(q, blocks, st);
-#if RPA_ALL_GEOMETRIES
-  if (warps == 8 && m_tiles == 1) return launch<HD, 8, 1, kTileRow>(q, blocks, st);
-  if (warps == 4 && m_tiles == 2) return launch<HD, 4, 2, kTileRow>(q, blocks, st);
-#endif
   return cudaErrorInvalidValue;
 }
 
@@ -572,9 +561,8 @@ extern "C" {
 // contiguous bfloat16 (B, N, heads, hd). A block of `warps` warps holds
 // warps x m_tiles x 16 query rows; tile_row != 0 takes the
 // within-a-grid-row bias path (w a multiple of 64). The library takes 4 x
-// 2 with tile_row and 8 x 1 without (all four pairs where built with
-// RPA_ALL_GEOMETRIES). Launches
-// on the caller's stream; nothing waits. Returns the CUDA error
+// 2 with tile_row and 8 x 1 without. Launches on the caller's stream;
+// nothing waits. Returns the CUDA error
 // (cudaErrorInvalidValue for an hd, geometry or shape it does not take),
 // with the runtime's last-error state cleared.
 int rel_pos_attention(const void* qkv, const float* qh, const float* qw,

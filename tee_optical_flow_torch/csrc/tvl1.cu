@@ -77,7 +77,8 @@
 //     the state is held as float2 pairs so a step loads a pixel's flow and
 //     its neighbours' dual pairs in one instruction each, and tiles off the
 //     image's border skip the border checks. S and the tile are
-//     compile-time constants chosen by measurement (chip_smoke.k2_tuning).
+//     compile-time constants chosen by measurement on an H100 (PERF.md
+//     section 6, one-off measurements).
 //   * The median is fused into each block's first launch: it stages u, v
 //     over the extended tile and two more pixels (clamped to the image) in
 //     the planes the dual field and constants fill next, and with the stop
@@ -132,8 +133,8 @@ unsigned long long tee_launch_count = 0;
 
 // The block loop's sweep launches: at most K2_S steps each on a K2_EW x
 // K2_EH extended tile (the tile and a halo of K2_S pixels) in shared
-// memory, K2_THREADS threads. chip_smoke.k2_tuning rebuilds this file with
-// -D overrides to time other shapes.
+// memory, K2_THREADS threads, timed against other shapes in builds with
+// -D overrides (PERF.md section 6, one-off measurements).
 #ifndef K2_S
 #define K2_S 5
 #endif

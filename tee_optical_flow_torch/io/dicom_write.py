@@ -14,7 +14,7 @@ Supports the transfer syntaxes the ultrasound path sees:
   * JPEG Lossless (1.2.840.10008.1.2.4.70, process 14, selection value
     1): one SOF3 stream per frame item.
 
-Used by the port's tests and chip_smoke.py.
+Used by the port's tests.
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ and what bounds it, is in the source's head note.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -45,11 +45,11 @@ def attention_geometry(w: int) -> Tuple[int, int, bool]:
     within-a-row path, and a block 4 warps of two row tiles, so that every
     k and v fragment read from shared memory feeds two products; else (the
     windowed blocks' 14x14, the depth attention's 2x2) 8 warps of one row
-    tile. chip_smoke.attention_tuning on an H100, two runs: within a row
-    4 x 2 is 2-8% faster than 8 x 1 at 16x64 and vit_h's 64x64, within
-    4% at vit_b's; across rows 8 x 1 is 19-23% faster at 14x14, 25-30% at 40x40
-    and 48x48, and within 8% either way from 24x24 to 36x36 and at
-    64x64."""
+    tile. A sweep of every geometry on an H100 (two runs; PERF.md
+    section 6): within a row 4 x 2 is 2-8% faster than 8 x 1 at 16x64 and
+    vit_h's 64x64, within 4% at vit_b's; across rows 8 x 1 is 19-23%
+    faster at 14x14, 25-30% at 40x40 and 48x48, and within 8% either way
+    from 24x24 to 36x36 and at 64x64."""
     return (4, 2, True) if w % KEY_TILE == 0 else (8, 1, False)
 
 
@@ -85,13 +85,12 @@ def _check(qkv: torch.Tensor, qh: torch.Tensor, qw: torch.Tensor, h: int,
 
 
 def _launch(qkv: torch.Tensor, qh: torch.Tensor, qw: torch.Tensor, h: int,
-            w: int, scale: float, geometry: Tuple[int, int, bool],
-            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+            w: int, scale: float,
+            geometry: Tuple[int, int, bool]) -> torch.Tensor:
     """One launch of the kernel in the given geometry (warps a block,
     16-row tiles a warp, tile_row): the bfloat16 (B, N, heads, hd) sum.
-    The operator below gives it ``attention_geometry``'s choice and the
-    default library, which builds only those; chip_smoke.attention_tuning
-    gives it the others and the library built with RPA_ALL_GEOMETRIES."""
+    The operator below gives it ``attention_geometry``'s choice; the
+    library builds only those, and refuses any other at the launch."""
     _check(qkv, qh, qw, h, w)
     if qkv.data_ptr() % 16:
         raise ValueError("rel_pos_attention: qkv must start 16-byte aligned")
@@ -101,7 +100,7 @@ def _launch(qkv: torch.Tensor, qh: torch.Tensor, qw: torch.Tensor, h: int,
     sb, sn, s3, sh, _ = qkv.stride()
     bias_strides = (ctypes.c_longlong * 8)(*qh.stride()[:4], *qw.stride()[:4])
     warps, m_tiles, tile_row = geometry
-    lib = lib or load_library()
+    lib = load_library()
     with launch_context(qkv.device) as stream:
         check_launch("rel_pos_attention", lib.rel_pos_attention(
             ptr(qkv), ptr(qh), ptr(qw), ctypes.addressof(bias_strides),

@@ -95,13 +95,12 @@ def connected_components_plain(mask: torch.Tensor, connectivity: int = 2
     return _label_plain(mask, connectivity)[0]
 
 
-def _label_on_card(mask: torch.Tensor, connectivity: int, lib=None):
-    """``labelling_group`` of ``csrc/labelling.cu`` (of ``lib``, the
-    kernel library by default) on the current stream, and the rounds it
-    ran: groups of ``LABEL_PASSES_PER_READ`` pass launches, the ids
-    ping-ponging between two stacks, each group's flags read back (one
-    host wait) until a pass is quiet or H*W rounds have run. Counts the
-    pass launches in ``labelling_passes``."""
+def _label_on_card(mask: torch.Tensor, connectivity: int):
+    """``labelling_group`` of ``csrc/labelling.cu`` on the current stream,
+    and the rounds it ran: groups of ``LABEL_PASSES_PER_READ`` pass
+    launches, the ids ping-ponging between two stacks, each group's flags
+    read back (one host wait) until a pass is quiet or H*W rounds have
+    run. Counts the pass launches in ``labelling_passes``."""
     n, h, w = mask.shape
     if h * w >= 2 ** 31:
         raise ValueError(f"connected_components: {h}x{w} frames hold more "
@@ -111,7 +110,7 @@ def _label_on_card(mask: torch.Tensor, connectivity: int, lib=None):
             for _ in range(2)]
     if mask.numel() == 0:
         return bufs[0], 0
-    lib = lib or load_library()
+    lib = load_library()
     r = LABEL_ROUNDS_PER_PASS
     total = -(-h * w // r)
     flags = torch.zeros(total, dtype=torch.int32, device=mask.device)

@@ -301,9 +301,9 @@ def _resize(img: torch.Tensor, h: int, w: int, method: str) -> torch.Tensor:
     product's shape, and one product over the batch has a shape that
     grows with the batch (a 30x40 -> 60x80 cubic resize of 16 images
     differed from the same images' rows of a 32-image product by 3e-5 on
-    an H100: chip_smoke.batch_dependence). With one shape for every
-    group, an image's resize does not depend on the images beside it, and
-    a pair's flow not on the pairs solved with it
+    an H100: PERF.md section 6, one-off measurements). With one shape for
+    every group, an image's resize does not depend on the images beside
+    it, and a pair's flow not on the pairs solved with it
     (flow/pipeline.compute_clip_flow_sharded is bit-equal to the
     unsharded solve)."""
     with trace_stage("resize"):

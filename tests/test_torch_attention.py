@@ -17,18 +17,17 @@ ragged 7x9 grid and two more grids, one for each geometry, q, k and v
 taken by strides from a real ``qkv`` projection and
 the weights drawn as the SAM cell draws them
 (the SAM cell's ``sam_clip.draw_state``: tables at 2 / sqrt(hd);
-chip_smoke.attention_module). This file imports no JAX; on the machine
-with the card:
+``_module``). This file imports no JAX; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_attention.py -q
 
 Accuracy: both versions are held to a float32 attention of the same
 bfloat16 q, k, v and the float32 bias of the JAX package's einsums
-(scores, softmax and sum in float32, no rounding; chip_smoke
-.attention_float32, which shares no code with the bias projections that
-feed the kernel). Both round P and the output to bfloat16, at different points:
-the plain version rounds the normalised softmax, the kernel the
+(scores, softmax and sum in float32, no rounding; ``_float32_attention``,
+which shares no code with the bias projections that feed the kernel).
+Both round P and the output to bfloat16, at different points: the plain
+version rounds the normalised softmax, the kernel the
 unnormalised exp(s - running max) and divides by the sum of the rounded
 values at the end, and the two products accumulate in different orders.
 So the kernel's error is not the plain version's bit for bit, but comes
@@ -49,14 +48,66 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import attention_float32 as _float32_attention
-from chip_smoke import attention_module as _module
-from chip_smoke import attention_qkv as _qkv
 from tee_optical_flow_torch.models import image_encoder as ie
 from tee_optical_flow_torch.ops import attention_kernels as ak
 from tee_optical_flow_torch.utils.tracing import get_counters
 
 ERR_RATIO = 1.25
+# the tables' spread as the SAM cell draws them (sam_clip.draw_state):
+# REL_POS_SPREAD / sqrt(hd); dense weights at 1/sqrt(fan-in), biases 0.1
+REL_POS_SPREAD, ATTN_BIAS_SPREAD = 2.0, 0.1
+
+
+def _module(heads, hd, h, w, dtype, device, seed=0):
+    """A RelPosAttention on an h x w grid with its weights drawn as the SAM
+    cell draws a checkpoint: dense weights at 1/sqrt(fan-in), biases at
+    ATTN_BIAS_SPREAD, tables at REL_POS_SPREAD / sqrt(hd)."""
+    from tee_optical_flow_torch.models.image_encoder import RelPosAttention
+
+    gen = torch.Generator().manual_seed(seed)
+    m = RelPosAttention(heads * hd, heads, input_size=(h, w), dtype=dtype)
+    with torch.no_grad():
+        for lin in (m.qkv, m.proj):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen)
+                             / math.sqrt(lin.weight.shape[1]))
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gen)
+                           * ATTN_BIAS_SPREAD)
+        for t in (m.rel_pos_h, m.rel_pos_w):
+            t.copy_(torch.randn(t.shape, generator=gen)
+                    * REL_POS_SPREAD / math.sqrt(hd))
+    return m.to(device)
+
+
+def _qkv(m, b, h, w, seed=1):
+    """The module's qkv projection of (b, h, w, dim) standard normal tokens
+    (what the block's LayerNorm hands it), reshaped as its forward does:
+    (b, N, 3, heads, hd)."""
+    from tee_optical_flow_torch.models.common import linear
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, w, m.num_heads * m.head_dim), generator=gen)
+    return linear(x.to(m.qkv.weight.device), m.qkv, m.dtype).reshape(
+        b, h * w, 3, m.num_heads, m.head_dim)
+
+
+def _float32_attention(m, qkv, h, w):
+    """The attention of the module's bfloat16 qkv (B, N, 3, heads, hd) in
+    float32 with no rounding, (B, N, heads, hd): the bias from the JAX
+    package's einsums over the float32 queries and tables (not from the
+    module's ``_bias_terms``, which feeds the kernel), the scores, softmax
+    and weighted sum in float32."""
+    from tee_optical_flow_torch.models.image_encoder import rel_pos_embed
+
+    q, k, v = (t.to(torch.float32) for t in qkv.permute(2, 0, 3, 1, 4))
+    b, heads, n, hd = q.shape
+    qr = q.reshape(b, heads, h, w, hd)
+    bias_h = torch.einsum("byhwc,hkc->byhwk", qr,
+                          rel_pos_embed(m.rel_pos_h, h, h))
+    bias_w = torch.einsum("byhwc,wkc->byhwk", qr,
+                          rel_pos_embed(m.rel_pos_w, w, w))
+    s = torch.matmul(q, k.transpose(-2, -1)) * (hd ** -0.5)
+    s += (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n)
+    return torch.matmul(torch.softmax(s, dim=-1), v).transpose(1, 2)
 
 
 def _written_out(m, qkv, h, w):

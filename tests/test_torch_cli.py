@@ -350,7 +350,7 @@ def test_load_segmentor_reads_the_pth_as_jax_does(tmp_path, monkeypatch):
 
 # an orbax-only run dir (reading orbax needs JAX); data_axis 2 on fewer
 # devices than that: the CPU is one device, as a JAX process with one
-# device says, and on the one card the same (chip_smoke.phase_mesh)
+# device says, and on the one card the same
 _SEG_REFUSALS = {
     "orbax": (dict(pth=False), dict(), NotImplementedError, "item 8"),
     "data_axis": (dict(), dict(data_axis=2), TShardingError,

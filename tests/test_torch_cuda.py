@@ -39,10 +39,11 @@ from tee_optical_flow_torch.ops import warp as tw
 from tee_optical_flow_torch.utils.tracing import (
     get_counters, get_stage_report,
 )
-from chip_smoke import labelling_schedule, rounds_needed
 from test_torch_labelling import CASES as LABEL_CASES
 from test_torch_labelling import _cases as label_cases
-from test_torch_labelling import deep_masks, scipy_clean
+from test_torch_labelling import (
+    deep_masks, labelling_schedule, rounds_needed, scipy_clean,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -464,13 +465,44 @@ def test_labelling_bit_equal(card, geometry, case, connectivity):
     assert ran == ref_rounds
 
 
+# echo_clip's radial contraction c_k = A sin(2 pi k / period): a 16-frame
+# cardiac cycle, up to ~2.2 px of wall motion per frame at 480x640
+AMPLITUDE, PERIOD = 0.04, 16
+
+
+def echo_clip(n: int, h: int, w: int, seed: int = 0):
+    """(n, h, w) uint8 frames of the synthetic echo sector contracting by
+    c_k about the ring centre, and the (n-1, h, w, 2) true flow of each
+    consecutive pair in px (u = columns, v = rows)."""
+    from tee_optical_flow_torch.synthetic import (
+        bicubic_sample, echo_sector_masks, make_echo_pair,
+    )
+
+    img, _ = make_echo_pair(seed, h, w, contraction=0.0)
+    sector = echo_sector_masks(h, w)["sector"]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    cy, cx = 0.55 * h, 0.5 * w
+    cs = AMPLITUDE * np.sin(2 * np.pi * np.arange(n) / PERIOD)
+    frames = np.empty((n, h, w), np.uint8)
+    for k, c in enumerate(cs):
+        f = bicubic_sample(img.astype(np.float64), xx + c * (xx - cx),
+                           yy + c * (yy - cy))
+        f[~sector] = 0.0
+        frames[k] = np.round(np.clip(f, 0, 255))
+    # frame k shows I(x_c + (1 + c_k)(x - x_c)): a point at x moves to
+    # x_c + (1 + c_k)/(1 + c_{k+1}) (x - x_c) in frame k + 1
+    s = (1 + cs[:-1]) / (1 + cs[1:]) - 1
+    flow = np.stack([s[:, None, None] * (xx - cx)[None],
+                     s[:, None, None] * (yy - cy)[None]], axis=-1)
+    return frames, flow.astype(np.float32)
+
+
 def _otsu_stack(h, w, device):
-    """Otsu masks of chip_smoke's 33-frame echo clip, bucketed to 40
-    frames as the clip path does."""
-    import chip_smoke
+    """Otsu masks of echo_clip's 33-frame clip, bucketed to 40 frames as
+    the clip path does."""
     from tee_optical_flow_torch.ops.otsu import otsu_mask_stack
 
-    frames, _ = chip_smoke.echo_clip(33, h, w)
+    frames, _ = echo_clip(33, h, w)
     frames = np.concatenate([frames, np.repeat(frames[-1:], 7, axis=0)])
     gray = torch.from_numpy(frames).to(device).to(torch.float32) / 255.0
     return otsu_mask_stack(gray)
@@ -551,7 +583,7 @@ def test_labelling_deep_masks_equal_scipy(card, size):
 # seeded random weights. Float32 with TF32 off against the CPU: max-abs
 # logit difference under SAM_F32_REL of the logits' range, argmax labels
 # at least SAM_F32_AGREE equal; bfloat16 against float32 on the card: at
-# least SAM_BF16_AGREE of the labels (chip_smoke.py states the same)
+# least SAM_BF16_AGREE of the labels
 SAM_F32_REL, SAM_F32_AGREE, SAM_BF16_AGREE = 5e-4, 0.998, 0.97
 
 
@@ -687,11 +719,11 @@ def test_radlong_overlay_frames_card_match_cpu(card):
 
 # --- SAM fine-tuning (plain PyTorch: no kernel of this repository) --------
 # one vanilla train step of vit_t at its full 1024 width, batch 1, strict
-# float32, card against CPU, at chip_smoke.py's tolerances: the loss
-# within TRAIN_LOSS_REL relative, each gradient within TRAIN_GRAD_REL of
-# its tensor's max-abs; a gradient that is zero in exact arithmetic
-# (attention k-projection biases, biases before a batch norm) is float32
-# noise on both sides and must stay under TRAIN_GRAD_NOISE x the largest
+# float32, card against CPU: the loss within TRAIN_LOSS_REL relative,
+# each gradient within TRAIN_GRAD_REL of its tensor's max-abs; a gradient
+# that is zero in exact arithmetic (attention k-projection biases, biases
+# before a batch norm) is float32 noise on both sides and must stay under
+# TRAIN_GRAD_NOISE x the largest
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_NOISE = 1e-4, 1e-3, 1e-6
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of tee_optical_flow_torch, nor
-chip_smoke.py or epe_report_torch.py, imports JAX or the JAX package."""
+epe_report_torch.py or the card suite's test files, imports JAX or the
+JAX package."""
 
 import ast
 import subprocess
@@ -12,6 +13,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "tee_optical_flow_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tee_optical_flow_tpu",
              "optical_flow")
+# the test files of the card suite (their ``cuda`` cases, run on the card's
+# machine, which has no JAX, with ``--noconftest``) and the file they
+# import from
+CARD_SUITE = ("test_torch_cuda.py", "test_torch_attention.py",
+              "test_torch_labelling.py", "test_torch_tracing.py",
+              "test_torch_train_mesh.py", "test_torch_card_paths.py")
 
 
 def _modules():
@@ -26,11 +33,11 @@ def _modules():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port, chip_smoke and epe_report_torch (their
-    mains do not run on import), in a fresh interpreter."""
+    """Every module of the port and epe_report_torch (its main does not
+    run on import), in a fresh interpreter."""
     code = (
         "import importlib, sys\n"
-        f"for name in {_modules()!r} + ['chip_smoke', 'epe_report_torch']:\n"
+        f"for name in {_modules()!r} + ['epe_report_torch']:\n"
         "    importlib.import_module(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -42,8 +49,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py",
-                          ROOT / "epe_report_torch.py"],
+                         [ROOT / "epe_report_torch.py"] +
+                         [ROOT / "tests" / name for name in CARD_SUITE],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text())
@@ -59,13 +66,13 @@ def test_sources_import_no_jax(path):
 
 def test_port_imports_without_h5py_pandas_matplotlib():
     """The card's machine has none of the three: every module of the port
-    and chip_smoke import with them blocked (each is imported inside the
-    function that needs it)."""
+    imports with them blocked (each is imported inside the function that
+    needs it)."""
     code = (
         "import importlib, sys\n"
         "for name in ('h5py', 'pandas', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
-        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -87,7 +94,7 @@ def test_training_imports_without_pil_tensorboardx():
         "             'tee_optical_flow_torch.train.data',\n"
         "             'tee_optical_flow_torch.train.visutils',\n"
         "             'tee_optical_flow_torch.cli.train',\n"
-        "             'tee_optical_flow_torch.cli.val', 'chip_smoke'):\n"
+        "             'tee_optical_flow_torch.cli.val'):\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -17,7 +17,7 @@ Tolerances: at epsilon 0 and at epsilon 2.0 (pairs freeze at different
 steps, no decision near the threshold) the emulation is bit-equal to the
 plain version and freezes each pair at the same step; at the production
 epsilon 0.01 a pair may stop one step apart on an ulp of its error sum,
-which chip_smoke.py bounds at 0.05 px max-abs.
+which the card tests bound at 0.05 px max-abs.
 """
 
 import numpy as np

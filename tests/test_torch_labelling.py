@@ -40,11 +40,43 @@ import torch
 import torch.nn.functional as F
 
 import tee_optical_flow_torch
-from chip_smoke import labelling_schedule, rounds_needed
 from tee_optical_flow_torch.ops import morphology as mo
 from tee_optical_flow_torch.utils.tracing import get_counters
 
 torch.set_num_threads(1)
+
+
+def rounds_needed(mask, connectivity):
+    """Rounds of neighbour-min propagation after which no id of the (N,
+    H, W) mask changes any more, counted round by round with plain
+    PyTorch operations on the mask's device."""
+    _, h, w = mask.shape
+    big = h * w
+    ids = torch.where(mask, torch.arange(big, dtype=torch.int32,
+                                         device=mask.device).reshape(1, h, w),
+                      big)
+    rounds = 0
+    while True:
+        nxt = torch.where(mask, mo._neighbor_min(ids, big, connectivity), big)
+        if torch.equal(nxt, ids):
+            return rounds
+        ids, rounds = nxt, rounds + 1
+
+
+def labelling_schedule(needed, h, w, rounds_per_pass=None):
+    """What one labelling of H x W frames runs where the last round that
+    changes an id is round ``needed`` (``rounds_needed``): (rounds run,
+    flag reads on a card, pass launches on a card). The rounds are every
+    pass's up to and with the first quiet one, at most H*W; a card
+    launches whole groups of ops/morphology.LABEL_PASSES_PER_READ passes
+    (the cap's remainder last) and reads their flags once a group.
+    ``rounds_per_pass`` is LABEL_ROUNDS_PER_PASS unless given."""
+    r = rounds_per_pass or mo.LABEL_ROUNDS_PER_PASS
+    k = mo.LABEL_PASSES_PER_READ
+    total = -(-h * w // r)
+    passes = min(-(-needed // r) + 1, total)
+    reads = -(-passes // k)
+    return min(passes * r, h * w), reads, min(reads * k, total)
 
 
 def _source_geometry():

@@ -75,8 +75,7 @@ def test_clean_mask_matches_jax(rng, mode):
 def test_clean_mask_frame_depends_on_its_window(rng):
     """A frame's masks depend only on the labels of frames k-1 to k+2 (the
     moving average's window; the cleanup is per frame): clean_mask of
-    that window gives frame k's masks of the whole clip, at the ends too.
-    chip_smoke.py checks the card's masks against the CPU this way."""
+    that window gives frame k's masks of the whole clip, at the ends too."""
     labels = _label_movie(rng, n=9)
     cfg = TorchConfig(min_mask_size=30)
     whole = t_seg.clean_mask(labels, "RVIO_2class", config=cfg,

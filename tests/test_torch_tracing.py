@@ -253,7 +253,7 @@ def _run_clip(clip, config, device):
 
 def test_process_video_spans_and_counters_on_cpu(monkeypatch):
     from tee_optical_flow_torch.ops import morphology as mo
-    from chip_smoke import labelling_schedule, rounds_needed
+    from test_torch_labelling import labelling_schedule, rounds_needed
 
     n, h, w = 8, 40, 56
     config = OpticalFlowCalculationConfig(
@@ -422,7 +422,7 @@ def test_sync_debug_count_equals_host_syncs(card, monkeypatch):
     labellings read their flags once a group of passes
     (``labelling_schedule`` of a plain count of the rounds needed)."""
     from tee_optical_flow_torch.ops import morphology as mo
-    from chip_smoke import labelling_schedule, rounds_needed
+    from test_torch_labelling import labelling_schedule, rounds_needed
 
     clip = _echo_clip(33, 480, 640)
     config = default_optical_flow_config()
