@@ -24,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops import attention_kernels
+from ..ops import attention_kernels, norm_kernels
 from ..utils.tracing import trace_stage
 from .common import Adapter, LayerNorm2d, MLPBlock, conv2d, layer_norm, linear
 from .tinyvit import window_partition, window_unpartition
@@ -184,6 +184,29 @@ def closest_factors(n: int) -> Tuple[int, int]:
     return a, n // a
 
 
+def residual_norm_plain(x: torch.Tensor, norm: nn.LayerNorm, window: int,
+                        branch: Optional[torch.Tensor] = None):
+    """The plain version of ``ops/norm_kernels.residual_norm``, in
+    ``Block.forward``'s own sequence: without ``branch``, ``layer_norm`` of
+    the (B, H, W, C) stream ``x``, partitioned into (B nh nw, ws, ws, C)
+    windows (``window`` > 0; the pad zero) and cast to bfloat16; with
+    ``branch`` (that layout, or (B, H, W, C)), cropped back to the grid,
+    (x + branch, ``layer_norm`` of it cast to bfloat16)."""
+    b, h, w, c = x.shape
+    if branch is None:
+        x = layer_norm(x, norm)
+        if window > 0:
+            x = window_partition(x, window)[0].reshape(-1, window, window, c)
+        return x.to(torch.bfloat16)
+    if window > 0:
+        ph, pw = -(-h // window) * window, -(-w // window) * window
+        branch = window_unpartition(branch.reshape(-1, window * window, c),
+                                    window, b, h, w,
+                                    (ph, pw, ph // window, pw // window))
+    x = x + branch
+    return x, layer_norm(x, norm).to(torch.bfloat16)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block on (B, H, W, C): windowed attention
     (``window_size`` > 0, the map zero-padded to whole windows) or global
@@ -199,7 +222,12 @@ class Block(nn.Module):
     skip), and the result joins the spatial attention's output. A batch
     that ``chunk`` does not divide raises ValueError. A global block's
     spatial attention is the ``global_attn`` span, attribute ``block``
-    (``index``)."""
+    (``index``).
+
+    Where ``takes_kernel`` holds, the work around the attention (the norms,
+    the casts, the window partition and the residual add before the MLP)
+    is two launches of ``csrc/layer_norm.cu`` (ops/norm_kernels,
+    ``_forward_kernel``); elsewhere the plain sequence below."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  window_size: int = 14, use_adapter: bool = False,
@@ -240,7 +268,43 @@ class Block(nn.Module):
         xd = xd.reshape(b // d, h * w, d, c).transpose(1, 2)
         return xd.reshape(b, h, w, c)
 
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        """Whether the block's norms run in the kernel: a tensor on a card,
+        a bfloat16 block (the attention kernel's condition), no adapter
+        (``MLP_Adapter`` reads norm2's float32 output), no depth branch,
+        and no gradient to record (the kernel has no backward). A CPU
+        tensor, a float32 block, an adapter or depth block and a call that
+        needs gradients (fine-tuning, LoRA) take the plain sequence."""
+        if x.device.type != "cuda" or self.attn.dtype != torch.bfloat16 \
+                or self.use_adapter or self.thd:
+            return False
+        return not (torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(p.requires_grad for p in self.parameters())))
+
+    def _forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on ``takes_kernel``'s calls: LN1 straight into the
+        attention's bfloat16 windows (or tokens), then the residual add and
+        LN2 in one pass that reads the attention's output where it lies;
+        the MLP and its residual add as in ``forward``."""
+        ws = self.window_size
+        # the encoder's stream arrives channels-first in memory (the patch
+        # embedding's permute); the kernel reads it, and returns it, as
+        # contiguous (B, H, W, C) rows
+        x = x.contiguous()
+        n1, n2 = self.norm1, self.norm2
+        normed = norm_kernels.residual_norm(x, n1.weight, n1.bias, n1.eps, ws)
+        if ws > 0:
+            branch = self.attn(normed)
+        else:
+            branch = self.attn(normed, span_attrs={"block": self.index})
+        x, normed = norm_kernels.residual_norm(x, n2.weight, n2.bias, n2.eps,
+                                               ws, branch=branch)
+        return x + self.mlp(normed)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_kernel(x):
+            return self._forward_kernel(x)
         b, h, w, c = x.shape
         shortcut = x
         xd = self._depth_attention(x) if self.thd else None

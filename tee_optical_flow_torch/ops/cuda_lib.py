@@ -4,14 +4,15 @@ The sources are compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc -c`` per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``: ``csrc/tvl1.cu`` (K1, the block loop with K2 and the median),
-``csrc/deepflow.cu`` (K3), ``csrc/labelling.cu`` (the masks' labelling)
-and ``csrc/relpos_attention.cu`` (ViT-Det's attention). The library lands
-in ``build/kernels/`` at the root of the checkout (a directory git
-ignores), named by a hash of the sources and the flags, so an edited
-source is rebuilt and unchanged ones are reused. A variant with ``-D``
-overrides of a source's compile-time settings (``load_library(defines)``)
-is built beside it under its own name; only measurements and tests ask
-for one.
+``csrc/deepflow.cu`` (K3), ``csrc/labelling.cu`` (the masks' labelling),
+``csrc/relpos_attention.cu`` (ViT-Det's attention) and
+``csrc/layer_norm.cu`` (ViT-Det's residual add, norm and cast). The
+library lands in ``build/kernels/`` at the root of the checkout (a
+directory git ignores), named by a hash of the sources and the flags, so
+an edited source is rebuilt and unchanged ones are reused. A variant with
+``-D`` overrides of a source's compile-time settings
+(``load_library(defines)``) is built beside it under its own name; only
+measurements and tests ask for one.
 
 Parity flags: ``--fmad=false`` keeps every multiply and add separately
 rounded, as the plain PyTorch versions and the JAX reference compute them
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "labelling_group": (_P,) * 4 + (_I,) * 6 + (_P,),
     "rel_pos_attention": (_P,) * 5 + (_I,) * 6 + (_L,) * 4 + (_F,)
     + (_I,) * 3 + (_P,),
+    "residual_norm": (_P,) * 6 + (_I,) * 5 + (_F,) + (_P,),
 }
 
 # the loaded libraries, by their nvcc flags

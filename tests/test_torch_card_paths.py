@@ -17,7 +17,8 @@ repo's conftest cannot load; these files import none):
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py tests/test_torch_attention.py \\
         tests/test_torch_labelling.py tests/test_torch_tracing.py \\
-        tests/test_torch_train_mesh.py tests/test_torch_card_paths.py -q
+        tests/test_torch_train_mesh.py tests/test_torch_card_paths.py \\
+        tests/test_torch_norm_kernel.py -q
 
 The clips are ``echo_clip``'s (tests/test_torch_cuda.py) at the smallest
 sizes that take each route: 256x320 keeps the production pyramids' five
@@ -65,12 +66,13 @@ TV_CALLS, TV_WARPS, TV_OUTER, TV_INNER = 25, 5, 10, 30
 DF_CALLS, K3_TILED = 15, 12
 WRAPPERS = ("tvl1_outer_loop", "tvl1_block_loop", "tvl1_inner_block",
             "median_filter_5x5", "sor_sweeps", "connected_components",
-            "rel_pos_attention")
+            "rel_pos_attention", "residual_norm")
 # the masks' labellings a clip: fill and size filter (Otsu), both for each
 # of rv and av (RVIO_2class)
 OTSU_LABELLINGS, RVIO_LABELLINGS = 2, 4
 CLASSES = 3
-# vit_b's transformer blocks: one attention launch each a micro-batch
+# vit_b's transformer blocks: one attention launch and two residual_norm
+# launches each a micro-batch
 VITB_BLOCKS = 12
 # the int8 segmentor's logits against bfloat16's, of their max-abs (the
 # JAX package's bound, tests/test_models.py); float32 labels card against
@@ -676,10 +678,11 @@ def test_cli_process_serves_vit_b_in_bfloat16_and_int8(card, tmp_path,
                                                        monkeypatch):
     """cli.process over one 8x256x320 DICOM with a vit_b checkpoint
     directory under config 5's PipelineConfig, in bfloat16 and in int8
-    weights: rc 0; 25 K1 calls, four labellings and the attention kernel
-    once a block and micro-batch (VITB_BLOCKS a micro-batch through the
-    encoder); the schema; the masks bit-equal to clean_mask on the CPU
-    over the card's labels; int8 logits within INT8_REL of bfloat16's."""
+    weights: rc 0; 25 K1 calls, four labellings, the attention kernel
+    once and the residual pass twice a block and micro-batch (VITB_BLOCKS
+    blocks a micro-batch through the encoder); the schema; the masks
+    bit-equal to clean_mask on the CPU over the card's labels; int8 logits
+    within INT8_REL of bfloat16's."""
     from tee_optical_flow_torch.cli import process as cli
     from tee_optical_flow_torch.models import (
         build_sam_vit_b, preprocess_frames,
@@ -717,7 +720,8 @@ def test_cli_process_serves_vit_b_in_bfloat16_and_int8(card, tmp_path,
         assert encoders > 0
         got, want = _since(before, tvl1_outer_loop=TV_CALLS,
                            connected_components=RVIO_LABELLINGS,
-                           rel_pos_attention=VITB_BLOCKS * encoders)
+                           rel_pos_attention=VITB_BLOCKS * encoders,
+                           residual_norm=2 * VITB_BLOCKS * encoders)
         assert got == want, dtype
         (layout,) = layouts.values()
         _check_schema(layout, n, h, w, "RVIO_2class")

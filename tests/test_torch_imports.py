@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tee_optical_flow_tpu",
 # import from
 CARD_SUITE = ("test_torch_cuda.py", "test_torch_attention.py",
               "test_torch_labelling.py", "test_torch_tracing.py",
-              "test_torch_train_mesh.py", "test_torch_card_paths.py")
+              "test_torch_train_mesh.py", "test_torch_card_paths.py",
+              "test_torch_norm_kernel.py")
 
 
 def _modules():
@@ -128,6 +129,7 @@ JAX_ONLY_MODULES = {"ops.deepflow_pallas", "ops.pallas_common",
                     "ops.tvl1_pallas"}
 PORT_ONLY_MODULES = {"ops.cuda_lib", "ops.deepflow_kernels",
                      "ops.tvl1_kernels", "ops.attention_kernels",
+                     "ops.norm_kernels",
                      "parallel.collectives", "parallel.launch",
                      "train.mesh_steps", "models.vitdet_oracle"}
 
